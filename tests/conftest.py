@@ -24,6 +24,12 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's hand-written kernels)"
+    )
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_per_module():
     """Drop compiled XLA:CPU executables between modules.
