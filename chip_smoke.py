@@ -7,25 +7,33 @@ Phases, one JSON line each ({"phase": ...}); any failure exits non-zero
 before the last line:
   device     card name and count, and nvidia-smi's name and power limit
              (also printed raw on a line of its own);
-  build      nvcc for the kernel in csrc/: command, seconds, and ptxas'
-             registers / shared memory / spills;
-  kernel     each hand-written kernel against its plain torch version on the
-             card at the main path's shapes (bit-exact), with kernel, plain
-             and one-library-call device times and the card's bound. Each
-             time is CUDA events around one replay of a CUDA graph holding
-             many calls, so the host's cost per call is not in it; the
-             profiler's kernel durations are printed beside it as a check;
+  build      nvcc for csrc/hamming.cu (both entries): command, seconds,
+             ptxas' registers / shared memory / spills per kernel, and the
+             tensor-core instructions (BMMA, IMMA) that cuobjdump finds in
+             each kernel's SASS; fails if an entry has none;
+  kernel     each hand-written entry against its plain torch version on the
+             card (bit-exact): hamming_matrix at six shapes, the fused
+             mutual-best match at (4096, 1024) windowed and unwindowed and at
+             ragged shapes; kernel, plain and yardstick device times and the
+             card's bound. Each time is CUDA events around one replay of a
+             CUDA graph holding many calls, so the host's cost per call is not
+             in it; the profiler's kernel durations are printed beside it;
   slice      the main path: the monocular chunk step at bench width (752x480
              uint8 frames, 1024 ORB features over 8 levels, a 4096-point map
              cache, rounds=3 iters=6), one warm-up and 4 timed 16-frame
              chunks. Fails unless every frame is ok within 0.05 m of ground
-             truth and every kernel of the path launched. Also checks that a
-             chunk run with the plain Hamming gives identical poses, and
-             times the branch-free recovery form (the one CUDA graph capture
-             takes) beside the step's host-read gate;
-  breakdown  CUDA-event times of the slice's stages, and the device busy
-             time of one track step and of one extraction (torch.profiler);
-then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+             truth, the fused match launched at least twice per frame and the
+             matrix entry, off this path, not at all. Also
+             checks that a chunk run with the plain matchers gives identical
+             poses, and times the branch-free recovery form (the one CUDA
+             graph capture takes) beside the step's host-read gate;
+  breakdown  CUDA-event times of the slice's stages, the windowed match
+             against the path it replaced, and the device busy time, launches
+             and idle share of one track step (torch.profiler) with the fused
+             match and with the replaced path;
+then one line {"kernels": [...]} (each entry's `launches` counted in the
+slice, with `on_main_path` and `kernel_phase_calls` beside it) and, last,
+{"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when torch sees no CUDA device.
 """
@@ -40,11 +48,17 @@ from unittest import mock
 import numpy as np
 import torch
 
-# H100 SXM: HBM3 3.35 TB/s (data sheet). 32-bit POPC issues at 16 per SM per
-# clock on compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
-# instruction throughput), 132 SMs at the 1.98 GHz boost clock.
+# H100 SXM published peaks (NVIDIA H100 data sheet):
+# HBM3 3.35 TB/s, 1,979 TOP/s int8 on the tensor cores, 67 TFLOP/s float32
+# outside them. A 256-bit Hamming distance counts as 256 int8 multiply-adds of
+# +-1 values (2 operations each), which the tensor cores can do. For the record
+# only: the CUDA-core bound of the popcount matrix kernel, 32-bit POPC at 16 per SM per clock
+# (CUDA C++ Programming Guide), 132 SMs at the 1.98 GHz boost clock.
 HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+FP32_FLOPS_PER_S = 67e12
 POPC_PER_S = 132 * 16 * 1.98e9
+WINDOW_FLOPS = 5  # per pair: 2 subtractions, 2 products, 1 sum
 
 SEED = 0
 FRAME_W, FRAME_H = 752, 480  # bench.py's headline scene
@@ -99,8 +113,8 @@ def graph_ms(fn, calls):
 
 
 def profiled_ms(fn, calls):
-    """Device milliseconds per call, summed over the kernels that
-    torch.profiler records in `calls` eager calls; also their names."""
+    """Device milliseconds per call, summed over the kernels (and memsets)
+    that torch.profiler records in `calls` eager calls, and the same by name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -109,9 +123,11 @@ def profiled_ms(fn, calls):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    names = sorted({e.name[:60] for e in kernels})
-    return sum(e.device_time for e in kernels) / 1e3 / calls, names
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time / 1e3 / calls
+    return sum(by_name.values()), by_name
 
 
 def phase_device():
@@ -132,13 +148,74 @@ def phase_device():
     return info
 
 
+def _ptxas_by_kernel(text):
+    """{kernel: {"registers", "smem_bytes", "spill_stores", "spill_loads"}} from ptxas -v."""
+    import re
+
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, {}).update(registers=int(m[1]),
+                                            smem_bytes=int(smem[1]) if smem else 0)
+    return out
+
+
+def _sass_counts(library):
+    """{kernel: {"BMMA": n, "IMMA": n, "atomics": n}} from cuobjdump -sass."""
+    import re
+
+    from orb_slam3_modified_tpu_torch._cuda import cuda_tool
+
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = {}
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+        out[name] = {"BMMA": ops.count("BMMA"), "IMMA": ops.count("IMMA"),
+                     "atomics": sum(op.startswith(("RED", "ATOM")) for op in ops)}
+    return out
+
+
+def _short_name(mangled):
+    """hamming.cu's kernels by name; match_kernel<windowed> has two instances."""
+    for short, pattern in (("hamming_mma_kernel", "hamming_mma_kernel"),
+                           ("match_finish_kernel", "match_finish_kernel"),
+                           ("match_kernel<true>", "match_kernelILb1E"),
+                           ("match_kernel<false>", "match_kernelILb0E")):
+        if pattern in mangled:
+            return short
+    return mangled
+
+
 def phase_build():
+    from orb_slam3_modified_tpu_torch.features.matcher import MATCH_KERNEL
     from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
 
     t0 = time.perf_counter()
-    info = HAMMING_KERNEL.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {HAMMING_KERNEL.source.name: info}})
+    info = HAMMING_KERNEL.build(force=True)  # compiles csrc/hamming.cu: both entries
+    MATCH_KERNEL.build()  # loads the same library
+    seconds = time.perf_counter() - t0
+    ptxas = _ptxas_by_kernel(info["ptxas"]) if info else {}
+    sass = _sass_counts(HAMMING_KERNEL.library)
+    per_kernel = {}
+    for name, counts in sass.items():
+        per_kernel[_short_name(name)] = {**ptxas.get(name, {}), **counts}
+    emit({"phase": "build", "seconds": seconds, "source": HAMMING_KERNEL.source.name,
+          "cmd": info["cmd"] if info else None, "kernels": per_kernel})
+    for entry in ("hamming_mma_kernel", "match_kernel<true>", "match_kernel<false>"):
+        k = per_kernel.get(entry, {})
+        if k.get("BMMA", 0) + k.get("IMMA", 0) == 0:
+            raise SystemExit(f"build: {entry} has no tensor-core MMA in its SASS: {k}")
+    return per_kernel
 
 
 def _random_desc(rng, n, dev):
@@ -153,50 +230,152 @@ def _unpack_pm1(desc):
     return (1 - 2 * bits.reshape(desc.shape[0], -1)).to(torch.bfloat16)
 
 
+def _bound(bytes_moved, int8_ops, fp32_flops=0):
+    """(least ms, what bounds it): bytes over HBM rate against each operation
+    type over its peak (the units run side by side, so the larger counts)."""
+    times = {"bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+             "operations": max(int8_ops / INT8_OPS_PER_S, fp32_flops / FP32_FLOPS_PER_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
 def hamming_bound_ms(n1, n2):
-    bytes_moved = (n1 + n2) * 32 + n1 * n2 * 4
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = n1 * n2 * 8 / POPC_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """Inputs read once, the int32 matrix written once; n1 n2 256 +-1 int8 MACs."""
+    return _bound((n1 + n2) * 32 + n1 * n2 * 4, 2 * 256 * n1 * n2)
 
 
-def phase_kernel(dev):
+def kernel_hamming(dev):
+    from orb_slam3_modified_tpu_torch.ops import hamming
     from orb_slam3_modified_tpu_torch.ops.hamming import hamming_matrix, hamming_matrix_plain
 
     rng = np.random.default_rng(SEED)
     rows = {}
-    for n1, n2 in [(4096, 1024), (1024, 1024), (1000, 333)]:
+    for n1, n2 in [(4096, 1024), (1024, 1024), (1000, 333), (1, 1), (65, 129), (17, 4097)]:
         a, b = _random_desc(rng, n1, dev), _random_desc(rng, n2, dev)
         out = hamming_matrix(a, b)
         ref = hamming_matrix_plain(a, b)
         torch.cuda.synchronize()
         err = int((out - ref).abs().max())
-        pa, pb = _unpack_pm1(a), _unpack_pm1(b)
-        lib = torch.matmul(pa, pb.T)  # exact: +-1 products, |sum| <= 256
-        lib_err = int(((256 - lib.float()) / 2 - out.float()).abs().max())
-        bound, by = hamming_bound_ms(n1, n2)
-        kernel_ms = graph_ms(lambda: hamming_matrix(a, b), 200)
-        library_ms = graph_ms(lambda: torch.matmul(pa, pb.T), 200)
-        kernel_prof_ms, kernel_names = profiled_ms(lambda: hamming_matrix(a, b), 50)
-        library_prof_ms, library_names = profiled_ms(lambda: torch.matmul(pa, pb.T), 50)
-        row = {
-            "shape": [n1, n2], "max_abs_err": err, "library_max_abs_err": lib_err,
-            "kernel_ms": kernel_ms,
-            "plain_ms": graph_ms(lambda: hamming_matrix_plain(a, b), 10),
-            "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": by,
-            "kernel_share_of_bound": bound / kernel_ms,
-            "kernel_over_library": kernel_ms / library_ms,
-            "kernel_ms_per_mpair": kernel_ms / (n1 * n2 / 1e6),
-            "library_ms_per_mpair": library_ms / (n1 * n2 / 1e6),
-            "kernel_profiler_ms": kernel_prof_ms, "kernel_profiler_names": kernel_names,
-            "library_profiler_ms": library_prof_ms, "library_profiler_names": library_names,
-        }
+        tile = hamming.MATRIX_TILE
+        row = {"shape": [n1, n2], "max_abs_err": err,
+               "grid": [-(-n2 // tile), -(-n1 // tile)], "block": 128}
+        if n1 * n2 >= 1000 * 333:  # timed at the shapes with real work
+            pa, pb = _unpack_pm1(a), _unpack_pm1(b)
+            lib = torch.matmul(pa, pb.T)  # exact: +-1 products, |sum| <= 256
+            lib_err = int(((256 - lib.float()) / 2 - out.float()).abs().max())
+            bound, by = hamming_bound_ms(n1, n2)
+            kernel_ms = graph_ms(lambda: hamming_matrix(a, b), 200)
+            library_ms = graph_ms(lambda: torch.matmul(pa, pb.T), 200)
+            kernel_prof_ms, kernel_by_name = profiled_ms(lambda: hamming_matrix(a, b), 50)
+            library_prof_ms, library_by_name = profiled_ms(lambda: torch.matmul(pa, pb.T), 50)
+            row.update({
+                "library_max_abs_err": lib_err,
+                "kernel_ms": kernel_ms,
+                "plain_ms": graph_ms(lambda: hamming_matrix_plain(a, b), 10),
+                "library_ms": library_ms,
+                "bound_ms": bound, "bound_by": by,
+                "popc_bound_ms": n1 * n2 * 8 / POPC_PER_S * 1e3,  # popcount kernel's CUDA-core figure
+                "kernel_share_of_bound": bound / kernel_ms,
+                "kernel_over_library": kernel_ms / library_ms,
+                "kernel_profiler_ms": kernel_prof_ms, "kernel_profiler_by_name_ms": kernel_by_name,
+                "library_profiler_ms": library_prof_ms,
+                "library_profiler_by_name_ms": library_by_name,
+            })
+            err = max(err, lib_err)
         emit({"phase": "kernel", "name": "hamming_matrix", **row})
-        if err != 0 or lib_err != 0:
-            raise SystemExit(f"hamming_matrix disagrees at {(n1, n2)}: {err} / {lib_err}")
+        if err != 0:
+            raise SystemExit(f"hamming_matrix disagrees at {(n1, n2)}: {row}")
         rows[(n1, n2)] = row
     return rows
+
+
+def _match_inputs(rng, n1, n2, dev):
+    """A cache of n1 points against n2 features at bench width: a quarter of
+    the points are features seen before (a few bits off, a few px away), the
+    rest unrelated; 70% in view, 95% of features valid, radius 15 px per
+    octave (tracking/fused.py's first pass)."""
+    d2 = rng.integers(0, 2**32, (n2, 8), dtype=np.uint32)
+    d1 = rng.integers(0, 2**32, (n1, 8), dtype=np.uint32)
+    uv2 = (rng.random((n2, 2)) * [FRAME_W, FRAME_H]).astype(np.float32)
+    uv1 = (rng.random((n1, 2)) * [FRAME_W, FRAME_H]).astype(np.float32)
+    seen = rng.random(n1) < 0.25
+    src = rng.integers(0, n2, n1)
+    d1[seen] = d2[src[seen]]
+    for i in np.nonzero(seen)[0]:
+        for _ in range(8):
+            d1[i, rng.integers(0, 8)] ^= np.uint32(1 << int(rng.integers(0, 32)))
+    uv1[seen] = uv2[src[seen]] + rng.normal(0, 3, (int(seen.sum()), 2)).astype(np.float32)
+    level = torch.tensor(rng.integers(0, 8, n2), device=dev)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    return (t(d1.view(np.int32)), t(rng.random(n1) < 0.7), t(d2.view(np.int32)),
+            t(rng.random(n2) < 0.95), t(uv1), t(uv2),
+            15.0 * torch.pow(1.2, level.to(torch.float32)))
+
+
+def match_bound_ms(n1, n2, windowed):
+    """Inputs read once (descriptors, flags, and the window's uv and radius),
+    idx / ok / dist written once; the products of entry 1 and, windowed, the
+    window test of every pair in float32."""
+    bytes_in = (n1 + n2) * (32 + 1) + ((n1 + n2) * 8 + n2 * 4 if windowed else 0)
+    return _bound(bytes_in + n1 * (8 + 1 + 4), 2 * 256 * n1 * n2,
+                  WINDOW_FLOPS * n1 * n2 if windowed else 0)
+
+
+def kernel_match(dev):
+    from orb_slam3_modified_tpu_torch.features import matcher as m
+
+    rng = np.random.default_rng(SEED + 1)
+    rows = {}
+    for n1, n2, windowed in [(4096, 1024, True), (4096, 1024, False), (1000, 333, True),
+                             (65, 129, False), (17, 4097, True)]:
+        d1, v1, d2, v2, uv1, uv2, r = _match_inputs(rng, n1, n2, dev)
+        if windowed:
+            args = (d1, v1, d2, v2, uv1, uv2, r, m.TH_HIGH, 0.9)
+            name = "windowed_mutual_best_match"
+        else:
+            args = (d1, v1, d2, v2, m.TH_LOW, 0.8)
+            name = "mutual_best_match"
+        fused, plain, old = getattr(m, name), getattr(m, f"{name}_plain"), _old_matchers(m)[name]
+        got, want, was = fused(*args), plain(*args), old(*args)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(g, w) for g, w in zip(got, want))
+        old_exact = all(torch.equal(g, w) for g, w in zip(was, want))
+        row = {"shape": [n1, n2], "windowed": windowed, "exact": exact,
+               # memset, match kernel (row blocks x column splits), finish kernel
+               "grid": [-(-n1 // m.MATCH_ROWS), -(-n2 // m.MATCH_COLS)],
+               "block": m.MATCH_THREADS, "finish_grid": -(-n1 // 256), "finish_block": 256,
+               "old_path_exact": old_exact, "n_ok": int(got[1].sum()),
+               "max_abs_err": max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))}
+        if n1 == 4096:
+            bound, by = match_bound_ms(n1, n2, windowed)
+            kernel_ms = graph_ms(lambda: fused(*args), 200)
+            old_ms = graph_ms(lambda: old(*args), 50)
+            prof_ms, by_name = profiled_ms(lambda: fused(*args), 50)
+            row.update({
+                "kernel_ms": kernel_ms, "plain_ms": graph_ms(lambda: plain(*args), 10),
+                "old_path_ms": old_ms, "library_ms": None,
+                "bound_ms": bound, "bound_by": by, "kernel_share_of_bound": bound / kernel_ms,
+                "old_path_over_kernel": old_ms / kernel_ms,
+                "kernel_profiler_ms": prof_ms, "kernel_profiler_by_name_ms": by_name,
+                "old_path_profiler_ms": profiled_ms(lambda: old(*args), 20)[0],
+            })
+        emit({"phase": "kernel", "name": "mutual_best_match", **row})
+        if not (exact and old_exact and (row["n_ok"] > 0 or n1 < 1000)):
+            raise SystemExit(f"mutual_best_match disagrees at {(n1, n2, windowed)}: {row}")
+        rows[(n1, n2, windowed)] = row
+    return rows
+
+
+def phase_kernel(dev):
+    from orb_slam3_modified_tpu_torch.features.matcher import MATCH_KERNEL
+    from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
+
+    HAMMING_KERNEL.launches = MATCH_KERNEL.launches = 0
+    hamming = kernel_hamming(dev)
+    match = kernel_match(dev)
+    # launches in this phase: checks, warm-ups, captures and profiled calls
+    return hamming, match, {"hamming_matrix": HAMMING_KERNEL.launches,
+                            "mutual_best_match": MATCH_KERNEL.launches}
 
 
 def _scene(dev):
@@ -248,9 +427,28 @@ def _run_chunks(step, state, cache, chunks):
     return state, outs, [s.elapsed_time(e) for s, e in ms]
 
 
+def _plain_matchers(matcher):
+    """The track step's matcher entries (tracking/fused.py) -> their plain versions."""
+    return {"mutual_best_match": matcher.mutual_best_match_plain,
+            "windowed_mutual_best_match": matcher.windowed_mutual_best_match_plain}
+
+
+def _old_matchers(matcher):
+    """The track step's matcher entries -> the unfused path on the card: the window
+    as a torch mask, the matrix kernel (entry 1), the torch reductions."""
+    def windowed(d1, v1, d2, v2, uv1, uv2, r, max_dist, ratio):
+        return matcher.mutual_best_match(d1, v1, d2, v2, max_dist, ratio,
+                                         extra_mask=matcher.window_mask(uv1, uv2, r))
+
+    def brute(d1, v1, d2, v2, max_dist, ratio):
+        return matcher.match_from_matrix(matcher.hamming_matrix(d1, d2), v1, v2, max_dist, ratio, None)
+
+    return {"mutual_best_match": brute, "windowed_mutual_best_match": windowed}
+
+
 def phase_slice(dev):
     from orb_slam3_modified_tpu_torch.features import matcher
-    from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL, hamming_matrix_plain
+    from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
     from orb_slam3_modified_tpu_torch.tracking import fused
     from orb_slam3_modified_tpu_torch.tracking.chunked import make_chunk_step
     from orb_slam3_modified_tpu_torch.tracking.tracker import inv_level_sigma2
@@ -269,13 +467,14 @@ def phase_slice(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem_before = torch.cuda.memory_allocated()
-    HAMMING_KERNEL.launches = 0
+    HAMMING_KERNEL.launches = matcher.MATCH_KERNEL.launches = 0
     # main path: one warm-up chunk, then the timed chunks
     state_w, outs_w, _ = _run_chunks(step, state0, cache, chunks[:1])
     t_wall = time.perf_counter()
     state_t, outs_t, chunk_ms = _run_chunks(step, state_w, cache, chunks[1:])
     wall_s = time.perf_counter() - t_wall
-    launches = {"hamming_matrix": HAMMING_KERNEL.launches}
+    launches = {"mutual_best_match": matcher.MATCH_KERNEL.launches,
+                "hamming_matrix": HAMMING_KERNEL.launches}  # off the path: expect 0
     peak_mem = torch.cuda.max_memory_allocated()
 
     R = torch.cat([o.R for o in outs_w + outs_t]).cpu()
@@ -288,10 +487,10 @@ def phase_slice(dev):
     r_err_deg = torch.rad2deg(torch.arccos(cos.clamp(-1, 1)))
     ok = n_inl >= 20
 
-    # the same first timed chunk through the plain Hamming: identical poses
-    with mock.patch.object(matcher, "hamming_matrix", hamming_matrix_plain):
+    # the same first timed chunk through the plain matchers: identical poses
+    with mock.patch.multiple(fused, **_plain_matchers(matcher)):
         _, outs_p, plain_chunk_ms = _run_chunks(step, state_w, cache, chunks[1:2])
-    plain_same = bool(torch.equal(outs_p[0].R, outs_t[0].R) and torch.equal(outs_p[0].t, outs_t[0].t))
+    plain_same = all(torch.equal(a, b) for a, b in zip(outs_p[0], outs_t[0]))
     # the branch-free recovery form (what graph capture takes) over the same chunks
     with mock.patch.object(fused, "_branch_free", lambda t: True):
         _, outs_s, select_ms = _run_chunks(step, state_w, cache, chunks[1:])
@@ -313,7 +512,7 @@ def phase_slice(dev):
         "max_trans_err_m": float(t_err.max()), "max_rot_err_deg": float(r_err_deg.max()),
         "launches": launches, "launches_per_frame": {k: v / len(t) for k, v in launches.items()},
         "max_memory_allocated": peak_mem, "memory_allocated_before": mem_before,
-        "plain_hamming_chunk_ms": plain_chunk_ms[0], "plain_hamming_same_poses": plain_same,
+        "plain_match_chunk_ms": plain_chunk_ms[0], "plain_match_same_outputs": plain_same,
         "recovery_host_read_chunk_ms_p50": float(np.median(chunk_ms)),
         "recovery_branch_free_chunk_ms": select_ms,
         "recovery_branch_free_chunk_ms_p50": float(np.median(select_ms)),
@@ -325,10 +524,12 @@ def phase_slice(dev):
         failures.append(f"{int((~ok).sum())} frames not ok")
     if float(t_err.max()) >= TRANS_GATE_M:
         failures.append(f"translation error {float(t_err.max()):.4f} m >= {TRANS_GATE_M}")
-    if any(v == 0 for v in launches.values()):
-        failures.append(f"a kernel of the path never launched: {launches}")
+    if launches["mutual_best_match"] < 2 * len(t):
+        failures.append(f"the fused match launched fewer than 2 times per frame: {launches}")
+    if launches["hamming_matrix"] != 0:
+        failures.append(f"the matrix kernel is back on the main path: {launches}")
     if not plain_same:
-        failures.append("plain-Hamming chunk gave different poses")
+        failures.append("plain-matcher chunk gave different outputs")
     if not select_same:
         failures.append("branch-free recovery form gave different poses")
     if failures:
@@ -361,10 +562,12 @@ def _profile(fn):
 def phase_breakdown(dev, ctx):
     """Stage times on the slice's inputs (CUDA events): the extractor's
     stages over one 16-frame chunk, and one track step with its parts at the
-    main path's shapes; then a profiler pass over one track step."""
+    main path's shapes; then profiler passes over one track step, with the
+    fused match and with the unfused match path, and over one extraction."""
     from orb_slam3_modified_tpu_torch.cameras import project
     from orb_slam3_modified_tpu_torch.features.extractor import EDGE, ORBExtractor
-    from orb_slam3_modified_tpu_torch.features.matcher import TH_HIGH, mutual_best_match
+    from orb_slam3_modified_tpu_torch.features import matcher
+    from orb_slam3_modified_tpu_torch.features.matcher import TH_HIGH, windowed_mutual_best_match
     from orb_slam3_modified_tpu_torch.lie.se3 import SE3
     from orb_slam3_modified_tpu_torch.ops.brief import GATHER_R, brief_from_patches
     from orb_slam3_modified_tpu_torch.ops.fast import border_mask, fast_score_maps, nonmax_3x3
@@ -374,6 +577,7 @@ def phase_breakdown(dev, ctx):
     )
     from orb_slam3_modified_tpu_torch.ops.select import cell_topk, global_topk
     from orb_slam3_modified_tpu_torch.optim.pose_opt import pose_optimization
+    from orb_slam3_modified_tpu_torch.tracking import fused
     from orb_slam3_modified_tpu_torch.tracking.fused import TrackStep
 
     cam, ecfg, inv_s2, chunks, state, cache = ctx
@@ -411,8 +615,10 @@ def phase_breakdown(dev, ctx):
     step = TrackStep(cam, inv_s2, ecfg.n_features, 3, 6, device=dev)
     T = SE3(state.R, state.t)
     uv = project(cam, T.apply(cache.pos))
-    spatial = ((uv[:, None, :] - f[0][None]) ** 2).sum(-1) < (15.0 * torch.pow(1.2, f[3].float())) ** 2
-    idx, okm, _ = mutual_best_match(cache.desc, cache.valid, f[1], f[5], TH_HIGH, 0.9, spatial)
+    r = 15.0 * torch.pow(1.2, f[3].float())
+    window_args = (cache.desc, cache.valid, f[1], f[5], uv, f[0], r, TH_HIGH, 0.9)
+    idx, okm, _ = windowed_mutual_best_match(*window_args)
+    old_windowed = _old_matchers(matcher)["windowed_mutual_best_match"]
     inv_s2_t = torch.as_tensor(inv_s2, device=dev)[f[3][idx].long()]
 
     def track():
@@ -426,9 +632,8 @@ def phase_breakdown(dev, ctx):
         "blur_level0_chunk_ms": cuda_ms(lambda: gaussian_blur(im0, ex.gauss_taps), iters=10),
         "gather_angle_brief_level0_chunk_ms": cuda_ms(describe, iters=10),
         "track_step_ms": cuda_ms(track, iters=5, warmup=1),
-        "windowed_match_ms": cuda_ms(
-            lambda: mutual_best_match(cache.desc, cache.valid, f[1], f[5], TH_HIGH, 0.9, spatial),
-            iters=20),
+        "windowed_match_ms": cuda_ms(lambda: windowed_mutual_best_match(*window_args), iters=20),
+        "windowed_match_old_path_ms": cuda_ms(lambda: old_windowed(*window_args), iters=20),
         "pose_solve_ms": cuda_ms(
             lambda: pose_optimization(T, cam, cache.pos, f[0][idx], inv_s2_t, 3, 6, valid=okm),
             iters=5, warmup=1),
@@ -440,6 +645,15 @@ def phase_breakdown(dev, ctx):
         "track_step_device_idle_share": 1.0 - busy / times["track_step_ms"],
         "track_step_kernel_launches": n_kernels,
         "track_step_top_kernels_ms": top,
+    })
+    with mock.patch.multiple(fused, **_old_matchers(matcher)):  # before: the unfused match path
+        old_ms = cuda_ms(track, iters=5, warmup=1)
+        busy, n_kernels, wall, top = _profile(track)
+    times.update({
+        "old_path_track_step_ms": old_ms, "old_path_track_step_device_busy_ms": busy,
+        "old_path_track_step_device_idle_share": 1.0 - busy / old_ms,
+        "old_path_track_step_kernel_launches": n_kernels,
+        "old_path_track_step_top_kernels_ms": top,
     })
     busy, n_kernels, wall, top = _profile(lambda: ex(imgs))
     times.update({
@@ -461,24 +675,37 @@ def main():
     dev = torch.device("cuda", 0)
     device = phase_device()
     phase_build()
-    kernel_rows = phase_kernel(dev)
+    hamming, match, kernel_launches = phase_kernel(dev)
     slice_result, ctx = phase_slice(dev)
     phase_breakdown(dev, ctx)
-    hot = kernel_rows[(4096, 1024)]
-    emit({"kernels": [{
-        "name": "hamming_matrix",
-        "route": "cuda",
-        "source": "orb_slam3_modified_tpu_torch/csrc/hamming.cu",
-        "replaces": "orb_slam3_modified_tpu/ops/pallas_kernels.py:31",
-        "launches": slice_result["launches"]["hamming_matrix"],
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
-        "ms": hot["kernel_ms"],
-        "plain_ms": hot["plain_ms"],
-        "bound_ms": hot["bound_ms"],
-        "bound_by": hot["bound_by"],
-        "library_ms": hot["library_ms"],
-        "held_against_plain": True,
-    }]})
+    source = "orb_slam3_modified_tpu_torch/csrc/hamming.cu"
+    replaces = "orb_slam3_modified_tpu/ops/pallas_kernels.py:31"
+    hot_h, hot_m = hamming[(4096, 1024)], match[(4096, 1024, True)]
+    emit({"kernels": [
+        {
+            "name": "hamming_matrix", "route": "cuda", "source": source, "replaces": replaces,
+            # off the main path since the matcher takes the fused entry (the slice checks
+            # it made 0 launches there); kernel_phase_calls counts the kernel phase's
+            # checks, warm-ups, captures and profiled calls
+            "launches": slice_result["launches"]["hamming_matrix"], "on_main_path": False,
+            "kernel_phase_calls": kernel_launches["hamming_matrix"],
+            "max_abs_err": max(r["max_abs_err"] for r in hamming.values()),
+            "ms": hot_h["kernel_ms"], "plain_ms": hot_h["plain_ms"],
+            "bound_ms": hot_h["bound_ms"], "bound_by": hot_h["bound_by"],
+            "library_ms": hot_h["library_ms"], "held_against_plain": True,
+        },
+        {
+            "name": "mutual_best_match", "route": "cuda", "source": source, "replaces": replaces,
+            "launches": slice_result["launches"]["mutual_best_match"], "on_main_path": True,
+            "kernel_phase_calls": kernel_launches["mutual_best_match"],
+            "max_abs_err": max(r["max_abs_err"] for r in match.values()),
+            "ms": hot_m["kernel_ms"], "plain_ms": hot_m["plain_ms"],
+            "bound_ms": hot_m["bound_ms"], "bound_by": hot_m["bound_by"],
+            "library_ms": None, "old_path_ms": hot_m["old_path_ms"],
+            "unwindowed_ms": match[(4096, 1024, False)]["kernel_ms"],
+            "held_against_plain": True,
+        },
+    ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}})
     return 0
 

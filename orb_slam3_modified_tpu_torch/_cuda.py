@@ -22,19 +22,21 @@ NVCC_FLAGS = (
 )
 
 
-def nvcc_path() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump), from PATH or CUDA_HOME/bin."""
+    found = shutil.which(name)
     if found:
         return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / name
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME/bin")
+    raise RuntimeError(f"{name} not found on PATH or under CUDA_HOME/bin")
 
 
 class CudaKernel:
-    """One csrc/<source> built into _build/lib<stem>.so; `symbol` is its C
-    launcher, which returns cudaGetLastError() after the launch.
+    """One entry of csrc/<source>, built into _build/lib<stem>.so; `symbol` is
+    its C launcher, which returns cudaGetLastError() after the launch. Entries
+    of one source share the library: the first to build compiles it.
 
     `launches` counts successful launches through __call__ only."""
 
@@ -47,15 +49,17 @@ class CudaKernel:
         self.build_info = None  # {"cmd", "seconds", "ptxas"} of the last build
         self._fn = None
 
-    def build(self):
-        """Compile if the library is missing or older than its source, then
-        load it. Returns build_info (None when an existing build was used)."""
+    def build(self, force: bool = False):
+        """Compile if the library is missing or older than its source, or
+        always with force (before the library is first loaded), then load it.
+        Returns build_info (None when an existing build was used)."""
         if self._fn is not None:
             return self.build_info
-        if not self.library.exists() or self.library.stat().st_mtime < self.source.stat().st_mtime:
+        stale = not self.library.exists() or self.library.stat().st_mtime < self.source.stat().st_mtime
+        if force or stale:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = self.library.with_name(f"{self.library.name}.{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+            cmd = [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             if proc.returncode != 0:

@@ -4,10 +4,13 @@ Port of orb_slam3_modified_tpu/ops/hamming.py and of the TPU kernel
 ops/pallas_kernels.py::_hamming_kernel. Descriptors are (N, 8) int32 holding
 the reference's 256 bits.
 
-`hamming_matrix` is the matcher's path. On CUDA tensors it launches the
-hand-written kernel csrc/hamming.cu or raises; it takes the plain torch
-version only for CPU tensors. `hamming_matrix_plain` is that plain version:
-the CPU tests run it, and the chip check holds the kernel against it.
+`hamming_matrix` is the distance matrix. On CUDA tensors it launches the
+hand-written kernel csrc/hamming.cu (bit products on the tensor cores) or
+raises; it takes the plain torch version only for CPU tensors.
+`hamming_matrix_plain` is that plain version: the CPU tests run it, and the
+chip check holds the kernel against it. The matcher's path on the card is the
+fused entry of the same source (features/matcher.py), which never writes the
+matrix.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ HAMMING_KERNEL = CudaKernel(
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p],
 )
-_MAX_ROW_BLOCKS = 65535  # grid.y limit; the kernel stages 64 rows of d1 per block
+MATRIX_TILE = 64  # csrc/hamming.cu kTile: a block owns a 64 x 64 output tile, 128 threads
+_MAX_ROW_BLOCKS = 65535  # grid.y limit
 
 
 def popcount32(x):
@@ -51,7 +55,7 @@ def hamming_matrix_plain(d1, d2):
     return out
 
 
-def _check_desc(d, name):
+def check_desc(d, name):
     if d.dtype != torch.int32 or d.dim() != 2 or d.shape[1] != N_WORDS:
         raise ValueError(f"{name}: expected (N, {N_WORDS}) int32, got {tuple(d.shape)} {d.dtype}")
     if not d.is_contiguous() or d.data_ptr() % 16:
@@ -64,10 +68,10 @@ def hamming_matrix(d1, d2):
         return hamming_matrix_plain(d1, d2)
     if d1.device.type != "cuda" or d1.device != d2.device:
         raise ValueError(f"hamming_matrix: tensors on {d1.device} and {d2.device}")
-    _check_desc(d1, "d1")
-    _check_desc(d2, "d2")
+    check_desc(d1, "d1")
+    check_desc(d2, "d2")
     n1, n2 = d1.shape[0], d2.shape[0]
-    if n1 > _MAX_ROW_BLOCKS * 64:
+    if n1 > _MAX_ROW_BLOCKS * MATRIX_TILE:
         raise ValueError(f"hamming_matrix: n1={n1} exceeds the kernel's grid")
     out = torch.empty((n1, n2), dtype=torch.int32, device=d1.device)
     if n1 and n2:

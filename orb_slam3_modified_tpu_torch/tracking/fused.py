@@ -22,7 +22,9 @@ from torch import nn
 
 from .. import resolve_device
 from ..cameras import Camera, project
-from ..features.matcher import TH_HIGH, TH_LOW, mutual_best_match, resolve_duplicate_targets
+from ..features.matcher import (
+    TH_HIGH, TH_LOW, mutual_best_match, resolve_duplicate_targets, windowed_mutual_best_match,
+)
 from ..lie.se3 import SE3
 from ..optim.pose_opt import pose_optimization
 
@@ -108,12 +110,11 @@ class TrackStep(nn.Module):
                 & (uv_pred[..., 1] >= -20)
                 & (uv_pred[..., 1] < cam.height + 20)
             )
-            d2 = uv_pred[:, None, :] - f_uv[None, :, :]
             r = radius_scale * torch.pow(1.2, f_level.to(torch.float32))
-            spatial = torch.sum(d2 * d2, dim=-1) < (r * r)[None, :]
-            idx, okm, dist = mutual_best_match(
-                cache.desc, in_view, f_desc, f_valid, max_dist=TH_HIGH, ratio=0.9,
-                extra_mask=spatial,
+            # the window |uv_pred - f_uv| < r is tested inside the match on the card
+            idx, okm, dist = windowed_mutual_best_match(
+                cache.desc, in_view, f_desc, f_valid, uv_pred, f_uv, r,
+                max_dist=TH_HIGH, ratio=0.9,
             )
             keep = resolve_duplicate_targets(idx, okm, dist, self.feat_cap)
             return solve(T_init, idx, keep), idx, keep

@@ -1,4 +1,6 @@
-"""Card-only tests of the port's hand-written CUDA kernels (marker `cuda`).
+"""Card-only tests of the port's hand-written CUDA kernels (marker `cuda`):
+the Hamming matrix (csrc/hamming.cu entry 1) and the fused windowed
+mutual-best match (entry 2), each exact against its plain torch version.
 
 A CUDA kernel has no CPU mode, so each test checks inside its body for a
 card and skips without one. The machine with the card has no JAX, so this
@@ -15,6 +17,7 @@ import torch
 from orb_slam3_modified_tpu_torch import convert
 from orb_slam3_modified_tpu_torch.features import matcher
 from orb_slam3_modified_tpu_torch.ops import hamming as th
+from orb_slam3_modified_tpu_torch.tracking import fused
 
 
 def _card():
@@ -28,7 +31,8 @@ def _desc(rng, n, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n1,n2", [(4096, 1024), (1024, 1024), (1000, 333), (1, 1), (65, 129)])
+@pytest.mark.parametrize(
+    "n1,n2", [(4096, 1024), (1024, 1024), (1000, 333), (1, 1), (65, 129), (17, 4097)])
 def test_hamming_kernel_matches_plain(n1, n2):
     dev = _card()
     rng = np.random.default_rng(n1 * 7 + n2)
@@ -55,15 +59,83 @@ def test_hamming_wrapper_rejects_what_the_kernel_does_not_take():
         th.hamming_matrix(a, a.cpu())
 
 
+def _match_scene(n1, n2, seed, dev):
+    """Cache rows copying features (a few bits off), a third of the features
+    drawn from a small pool (ties), invalid rows and columns, points in a
+    200 px square."""
+    rng = np.random.default_rng(seed)
+    d2 = rng.integers(0, 2**32, (n2, 8), dtype=np.uint32)
+    pool = rng.integers(0, 2**32, (max(n2 // 24, 2), 8), dtype=np.uint32)
+    d2[: n2 // 3] = pool[rng.integers(0, len(pool), n2 // 3)]
+    d1 = d2[rng.integers(0, n2, n1)].copy()
+    for i in np.nonzero(rng.random(n1) < 0.5)[0]:
+        d1[i, rng.integers(0, 8)] ^= np.uint32(1 << int(rng.integers(0, 32)))
+    v1, v2 = rng.random(n1) > 0.1, rng.random(n2) > 0.1
+    v1[: max(n1 // 50, 1)] = False
+    uv1 = (rng.random((n1, 2)) * 200).astype(np.float32)
+    uv2 = (rng.random((n2, 2)) * 200).astype(np.float32)
+    r = (np.float32(15.0) * np.float32(1.2) ** rng.integers(0, 8, n2).astype(np.float32))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    return (convert.desc_from_uint32(d1, device=dev), t(v1), convert.desc_from_uint32(d2, device=dev),
+            t(v2), t(uv1), t(uv2), t(r.astype(np.float32)))
+
+
 @pytest.mark.cuda
-def test_chunk_step_kernel_path_equals_plain_path():
-    """A small chunk on the card: the kernel path launches and gives the
-    poses of the plain-Hamming path bit for bit."""
+@pytest.mark.parametrize(
+    "n1,n2", [(4096, 1024), (1000, 333), (1, 1), (65, 129), (17, 4097), (300, 2)])
+@pytest.mark.parametrize("windowed", [True, False])
+def test_fused_match_kernel_matches_plain(n1, n2, windowed):
     dev = _card()
+    d1, v1, d2, v2, uv1, uv2, r = _match_scene(n1, n2, n1 + 3 * n2, dev)
+    for max_dist, ratio in [(100, 0.9), (50, 0.8), (256, 1.0)]:
+        before = matcher.MATCH_KERNEL.launches
+        if windowed:
+            got = matcher.windowed_mutual_best_match(d1, v1, d2, v2, uv1, uv2, r, max_dist, ratio)
+            want = matcher.windowed_mutual_best_match_plain(
+                d1, v1, d2, v2, uv1, uv2, r, max_dist, ratio)
+        else:
+            got = matcher.mutual_best_match(d1, v1, d2, v2, max_dist, ratio)
+            want = matcher.mutual_best_match_plain(d1, v1, d2, v2, max_dist, ratio)
+        torch.cuda.synchronize()
+        assert matcher.MATCH_KERNEL.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w)
+        if n1 >= 1000:
+            assert 0 < int(got[1].sum()) < n1
+
+
+@pytest.mark.cuda
+def test_fused_match_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    d1, v1, d2, v2, uv1, uv2, r = _match_scene(64, 32, 0, dev)
+    with pytest.raises(ValueError):
+        matcher.mutual_best_match(d1, v1.to(torch.uint8), d2, v2)
+    with pytest.raises(ValueError):
+        matcher.mutual_best_match(d1, v1, d2.to(torch.int64), v2)
+    with pytest.raises(ValueError):
+        matcher.windowed_mutual_best_match(d1, v1, d2, v2, uv1.t().contiguous().t(), uv2, r)
+    with pytest.raises(ValueError):
+        matcher.windowed_mutual_best_match(d1, v1, d2, v2, uv1, uv2, r.double())
+    with pytest.raises(ValueError):
+        matcher.windowed_mutual_best_match(d1, v1, d2, v2, uv1, uv2.cpu(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [128, 512])
+def test_fused_match_launcher_rejects_scratch_of_another_tiling(cols):
+    dev = _card()
+    d1, v1, d2, v2, _, _, _ = _match_scene(64, 300, 1, dev)
+    before = matcher.MATCH_KERNEL.launches
+    with mock.patch.object(matcher, "MATCH_COLS", cols), pytest.raises(RuntimeError):
+        matcher.mutual_best_match(d1, v1, d2, v2)
+    assert matcher.MATCH_KERNEL.launches == before
+
+
+def _small_scene(dev):
     from orb_slam3_modified_tpu_torch.cameras import Camera
     from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig, ORBExtractor
     from orb_slam3_modified_tpu_torch.lie.se3 import SE3
-    from orb_slam3_modified_tpu_torch.tracking.chunked import make_chunk_step
     from orb_slam3_modified_tpu_torch.tracking.fused import DeviceTrackState
     from orb_slam3_modified_tpu_torch.tracking.tracker import inv_level_sigma2
     from orb_slam3_modified_tpu_torch.utils.synthetic import orbit_trajectory
@@ -82,11 +154,56 @@ def test_chunk_step_kernel_path_equals_plain_path():
                            SE3(T.R[kf], T.t[kf]), 2.0, 1024)
     state = DeviceTrackState(T.R[1].to(dev), T.t[1].to(dev), T.R[0].to(dev), T.t[0].to(dev),
                              torch.ones((), dtype=torch.bool, device=dev))
-    inv_s2 = inv_level_sigma2(4, 1.2)
-    before = th.HAMMING_KERNEL.launches
+    return cam, cfg, T, frames, cache, state, inv_level_sigma2(4, 1.2)
+
+
+@pytest.mark.cuda
+def test_branch_free_step_captures_in_a_cuda_graph():
+    """Under capture the step takes its branch-free form (no host read); the
+    graph's replay gives that form's eager result bit for bit, and the fused
+    match is in the graph (2 windowed passes, the brute match and the
+    recovery's windowed pass)."""
+    dev = _card()
+    from orb_slam3_modified_tpu_torch.features.extractor import ORBExtractor
+    from orb_slam3_modified_tpu_torch.tracking.fused import TrackStep
+
+    cam, cfg, _, frames, cache, state, inv_s2 = _small_scene(dev)
+    f = ORBExtractor(cfg, 240, 320, device=dev)(frames[2:3])
+    args = (state, cache, f.uv[0], f.desc[0], f.level[0], f.valid[0])
+    step = TrackStep(cam, inv_s2, cfg.n_features, device=dev)
+    with mock.patch.object(fused, "_branch_free", lambda t: True):
+        want = step(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(*args)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = matcher.MATCH_KERNEL.launches
+    with torch.cuda.graph(graph):
+        got = step(*args)
+    assert matcher.MATCH_KERNEL.launches == before + 4
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_chunk_step_kernel_path_equals_plain_path():
+    """A small chunk on the card: the fused match launches and gives the
+    poses and cache associations of the plain matchers bit for bit."""
+    dev = _card()
+    from orb_slam3_modified_tpu_torch.tracking.chunked import make_chunk_step
+
+    cam, cfg, T, frames, cache, state, inv_s2 = _small_scene(dev)
+    before = matcher.MATCH_KERNEL.launches
     _, outs, _ = make_chunk_step(cam, inv_s2, cfg, device=dev)(state, cache, frames[2:6])
-    assert th.HAMMING_KERNEL.launches > before
-    with mock.patch.object(matcher, "hamming_matrix", th.hamming_matrix_plain):
+    assert matcher.MATCH_KERNEL.launches >= before + 2 * 4
+    with mock.patch.multiple(
+        fused, mutual_best_match=matcher.mutual_best_match_plain,
+        windowed_mutual_best_match=matcher.windowed_mutual_best_match_plain,
+    ):
         _, outs_p, _ = make_chunk_step(cam, inv_s2, cfg, device=dev)(state, cache, frames[2:6])
     assert torch.equal(outs.R, outs_p.R) and torch.equal(outs.t, outs_p.t)
     assert torch.equal(outs.obs_cache_idx, outs_p.obs_cache_idx)
