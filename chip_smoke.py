@@ -31,8 +31,22 @@ before the last line:
              against the path it replaced, and the device busy time, launches
              and idle share of one track step (torch.profiler) with the fused
              match and with the replaced path;
-then one line {"kernels": [...]} (each entry's `launches` counted in the
-slice, with `on_main_path` and `kernel_phase_calls` beside it) and, last,
+  system     the whole monocular main path through the entry point a user
+             calls: SlamSystem(...).make_chunked_frontend(chunk=16, lag=1) on
+             bench.py's headline scene (400 frames, the first 64 as warm-up,
+             then the async mapper drained before the timer, as bench.py
+             does), async local mapping on its own CUDA stream, loop closing
+             off. frames/s, chunk ms (with and without mapper work during
+             the dispatch, and the ms each ms of it costs), tracked frames,
+             keyframes, map points, scale-aligned ATE, the stage breakdown,
+             each Hamming entry's launches, plain-version calls, peak memory.
+             Fails unless every frame retires in order, every timed frame is
+             tracked, ATE < 0.25 m, the matrix entry launched, the fused
+             entry launched at least twice per chunk-stepped frame, and no
+             plain (CPU-path) matcher or Hamming version was called;
+then one line {"kernels": [...]} (each entry's `launches` counted on the
+main path, the system phase, with the slice's count beside it in
+`launches_by_path`, and `kernel_phase_calls`) and, last,
 {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when torch sees no CUDA device.
@@ -67,6 +81,9 @@ CACHE_CAP = 4096
 CHUNK = 16
 N_TIMED = 4
 TRANS_GATE_M = 0.05
+N_SYSTEM_FRAMES = 400  # bench.py's headline run
+N_SYSTEM_WARM = 64
+ATE_GATE_M = 0.25  # tests/test_chunked.py:67
 
 
 def emit(obj):
@@ -250,7 +267,9 @@ def kernel_hamming(dev):
 
     rng = np.random.default_rng(SEED)
     rows = {}
-    for n1, n2 in [(4096, 1024), (1024, 1024), (1000, 333), (1, 1), (65, 129), (17, 4097)]:
+    # (1024, 8192): the mapper's batched match, 8 neighbours' features in one launch
+    for n1, n2 in [(4096, 1024), (1024, 1024), (1024, 8192), (1000, 333), (1, 1), (65, 129),
+                   (17, 4097)]:
         a, b = _random_desc(rng, n1, dev), _random_desc(rng, n2, dev)
         out = hamming_matrix(a, b)
         ref = hamming_matrix_plain(a, b)
@@ -378,23 +397,37 @@ def phase_kernel(dev):
                             "mutual_best_match": MATCH_KERNEL.launches}
 
 
+_HEADLINE = {}
+
+
+def _headline(cam):
+    """bench.py's headline scene, rendered once: the 400-frame quarter orbit
+    (bench.py:61-71) over the seeded texture, uint8 frames."""
+    from orb_slam3_modified_tpu_torch.utils.synthetic import orbit_trajectory
+    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import make_texture, render_sequence
+
+    if "frames" not in _HEADLINE:
+        T_all = orbit_trajectory(400, radius=4.0, sweep=np.pi / 2)
+        _HEADLINE["T"] = T_all
+        _HEADLINE["frames"] = render_sequence(cam, T_all, make_texture(SEED, 96, 1024),
+                                              plane_z=2.0, plane_half=10.0)
+    return _HEADLINE["T"], _HEADLINE["frames"]
+
+
 def _scene(dev):
     from orb_slam3_modified_tpu_torch.cameras import Camera
     from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig, ORBExtractor
     from orb_slam3_modified_tpu_torch.lie.se3 import SE3
-    from orb_slam3_modified_tpu_torch.utils.synthetic import orbit_trajectory
-    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import (
-        make_texture, render_sequence, seed_map_cache,
-    )
+    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import seed_map_cache
 
     k = FRAME_W / 752  # bench.py's intrinsics, scaled with the frame width
     cam = Camera.pinhole(458.654 * k, 457.296 * k, 367.215 * k, 248.375 * k,
                          width=FRAME_W, height=FRAME_H, device=dev)
     ecfg = ExtractorConfig(n_features=N_FEATURES)
     n_frames = 2 + CHUNK * (1 + N_TIMED)
-    T_all = orbit_trajectory(400, radius=4.0, sweep=np.pi / 2)
+    T_all, all_frames = _headline(cam)
     T_seq = SE3(T_all.R[:n_frames], T_all.t[:n_frames])
-    frames = render_sequence(cam, T_seq, make_texture(SEED, 96, 1024), plane_z=2.0, plane_half=10.0)
+    frames = all_frames[:n_frames]
     kf = np.linspace(0, n_frames - 1, 4).round().astype(int)
     extractor = ORBExtractor(ecfg, cam.height, cam.width, device=dev)
     kf_feats = extractor(torch.from_numpy(frames[kf]).to(dev))
@@ -665,6 +698,203 @@ def phase_breakdown(dev, ctx):
     return times
 
 
+def _count_plain_calls(stack):
+    """Patch every plain (CPU-path) matcher and Hamming version to count its
+    calls; on the card the main path must take none of them."""
+    from orb_slam3_modified_tpu_torch.features import matcher
+    from orb_slam3_modified_tpu_torch.ops import hamming
+
+    calls = {}
+
+    def counted(module, name):
+        fn = getattr(module, name)
+        key = f"{module.__name__.rsplit('.', 1)[-1]}.{name}"
+        calls[key] = 0
+
+        def wrapper(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+
+        stack.enter_context(mock.patch.object(module, name, wrapper))
+
+    counted(hamming, "hamming_matrix_plain")
+    for name in ("hamming_matrix_plain", "mutual_best_match_plain",
+                 "windowed_mutual_best_match_plain"):
+        counted(matcher, name)
+    return calls
+
+
+def phase_system(dev, async_mapping=True, start=0):
+    """The main path end to end, as bench.py:357-449 drives the reference
+    (for scripts/system_repeat.py's comparisons: async_mapping=False runs
+    the mapper in the tracker's thread, start > 0 enters the orbit at that
+    frame)."""
+    import contextlib
+
+    from orb_slam3_modified_tpu_torch import native
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.eval.ate import align_horn, ate_rmse
+    from orb_slam3_modified_tpu_torch.features import matcher
+    from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig
+    from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
+    from orb_slam3_modified_tpu_torch.system.slam_system import SlamSystem, SystemConfig
+
+    k = FRAME_W / 752
+    cam = Camera.pinhole(458.654 * k, 457.296 * k, 367.215 * k, 248.375 * k,
+                         width=FRAME_W, height=FRAME_H, device=dev)
+    t0 = time.perf_counter()
+    T_all, frames = _headline(cam)  # rendered once, in the slice's set-up
+    frames = frames[start:]
+    n = min(N_SYSTEM_FRAMES, len(frames))
+    slam = SlamSystem(SystemConfig(cam=cam, feat_cap=N_FEATURES,
+                                   extractor=ExtractorConfig(n_features=N_FEATURES),
+                                   use_loop_closing=False, device=str(dev)))
+    fe = slam.make_chunked_frontend(chunk=CHUNK, lag=1, async_mapping=async_mapping)
+    setup_s = time.perf_counter() - t0
+    am = slam.async_mapper
+    drain = am.flush if am is not None else (lambda: None)
+    # host intervals of each chunk dispatch (with its frame count) and of
+    # each keyframe the mapper thread processes: their overlap is the mapper
+    # work that shared the host (and the GIL) with a chunk's dispatch
+    dispatches, mapper_work = [], []
+    dispatch, on_keyframe = fe._dispatch_buffer, slam.mapper.on_keyframe
+
+    def timed_dispatch():
+        n_frames = len(fe._buf)
+        t = time.perf_counter()
+        dispatch()
+        dispatches.append((t, time.perf_counter(), n_frames))
+
+    def timed_on_keyframe(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return on_keyframe(*a, **kw)
+        finally:
+            mapper_work.append((t, time.perf_counter()))
+
+    fe._dispatch_buffer = timed_dispatch
+    slam.mapper.on_keyframe = timed_on_keyframe
+    # keyframes created, and keyframe decisions taken with the mapper
+    # backlogged (NeedNewKeyFrame then inserts only when tracking starves)
+    kf_log = {"created": 0, "decisions_backlogged": 0}
+    create_keyframe, busy_fn = slam.tracker._create_keyframe, slam.tracker.mapper_busy_fn
+
+    def counted_create_keyframe(*a, **kw):
+        kf_log["created"] += 1
+        return create_keyframe(*a, **kw)
+
+    def counted_busy():
+        busy = busy_fn()
+        kf_log["decisions_backlogged"] += bool(busy)
+        return busy
+
+    slam.tracker._create_keyframe = counted_create_keyframe
+    if busy_fn is not None:
+        slam.tracker.mapper_busy_fn = counted_busy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    retired = []
+    with contextlib.ExitStack() as stack:
+        plain_calls = _count_plain_calls(stack)
+        HAMMING_KERNEL.launches = matcher.MATCH_KERNEL.launches = 0
+        for i in range(N_SYSTEM_WARM):
+            retired += fe.track_image(frames[i], ts=i / 20.0)
+        drain()  # the mapper's first keyframes drain before the timer, as bench.py
+        warm = {"hamming_matrix": HAMMING_KERNEL.launches,
+                "mutual_best_match": matcher.MATCH_KERNEL.launches}
+        n_warm_dispatch = len(dispatches)
+        fe.stats.samples.clear()
+        slam.mapper.stats.samples.clear()
+        t0 = time.perf_counter()
+        for i in range(N_SYSTEM_WARM, n):
+            retired += fe.track_image(frames[i], ts=i / 20.0)
+        retired += fe.flush()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        drain()
+        launches = {"hamming_matrix": HAMMING_KERNEL.launches,
+                    "mutual_best_match": matcher.MATCH_KERNEL.launches}
+    peak_mem = torch.cuda.max_memory_allocated()
+    fe_stats, map_stats = fe.stats.summary(), slam.mapper.stats.summary()
+    slam.shutdown()
+
+    fids = [r[0] for r in retired]
+    tracked_timed = sum(r[2] is not None for r in retired if r[0] >= N_SYSTEM_WARM)
+    traj = slam.tracker.absolute_trajectory()
+    est = np.array([np.linalg.inv(T)[:3, 3] for _, _, T in traj])
+    R, t = T_all.R.numpy(), T_all.t.numpy()
+    gt = np.array([-R[f + start].T @ t[f + start] for _, f, _ in traj])
+    ate, scale = ate_rmse(est, gt) if len(traj) >= 3 else (float("inf"), 0.0)
+    half = [i for i, (_, f, _) in enumerate(traj) if f < n // 2]
+    ate_half = ate_rmse(est[half], gt[half])[0] if len(half) >= 3 else float("inf")
+    # where along the orbit the error sits: the aligned error's mean over
+    # each tenth of the trajectory, and the scale fitted to each quarter
+    # alone (a drifting scale shows as a trend)
+    err = align_horn(est.T, gt.T)[3] if len(traj) >= 3 else np.zeros(0)
+    err_by_tenth = [float(e.mean()) for e in np.array_split(err, 10) if len(e)]
+    scale_by_quarter = [ate_rmse(est[q], gt[q])[1] for q in np.array_split(np.arange(len(traj)), 4)
+                        if len(q) >= 3]
+    full = [d for d in dispatches[n_warm_dispatch:] if d[2] == CHUNK]
+    chunk_ms = [(d1 - d0) * 1e3 for d0, d1, _ in full]
+    overlap_ms = [sum(max(0.0, min(d1, w1) - max(d0, w0)) for w0, w1 in mapper_work) * 1e3
+                  for d0, d1, _ in full]
+    idle_ms = [c for c, o in zip(chunk_ms, overlap_ms) if o == 0]
+    busy_ms = [c for c, o in zip(chunk_ms, overlap_ms) if o > 0]
+    # least squares chunk_ms = a + b * overlap_ms: b is the dispatch time one
+    # ms of mapper work costs
+    slope = (float(np.polyfit(overlap_ms, chunk_ms, 1)[0])
+             if len(set(overlap_ms)) > 1 else None)
+    stepped = sum(d[2] for d in dispatches)
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
+    n_timed = n - N_SYSTEM_WARM
+    result = {
+        "phase": "system", "start": start, "frames": n, "frame_cut": N_SYSTEM_FRAMES - n,
+        "warm_frames": N_SYSTEM_WARM, "timed_frames": n_timed, "size": [FRAME_W, FRAME_H],
+        "n_features": N_FEATURES, "chunk": CHUNK, "lag": 1, "async_mapping": async_mapping,
+        "loop_closing": False, "setup_s": setup_s, "timed_wall_s": wall_s,
+        "frames_per_s": n_timed / wall_s,
+        "chunk_ms_p50": pct(chunk_ms, 50), "chunk_ms_p90": pct(chunk_ms, 90),
+        "chunk_ms_mapper_idle_p50": pct(idle_ms, 50), "chunk_ms_mapper_busy_p50": pct(busy_ms, 50),
+        "chunks_timed": len(chunk_ms), "chunks_mapper_idle": len(idle_ms),
+        "chunks_mapper_busy": len(busy_ms), "chunk_ms": chunk_ms,
+        "chunk_mapper_overlap_ms": overlap_ms, "chunk_ms_per_mapper_ms": slope,
+        "retired_in_order": fids == list(range(n)), "retired": len(fids),
+        "tracked_timed": tracked_timed, "tracked_total": sum(r[2] is not None for r in retired),
+        "keyframes": slam.map.n_keyframes(), "map_points": slam.map.n_points(),
+        "keyframes_created_after_init": kf_log["created"],
+        "keyframe_decisions_backlogged": kf_log["decisions_backlogged"],
+        "ate_m": ate, "ate_scale": scale, "ate_frames": len(traj),
+        "ate_first_half_m": ate_half, "ate_err_by_tenth_m": err_by_tenth,
+        "ate_scale_by_quarter": scale_by_quarter,
+        "chunk_stepped_frames": stepped, "slow_path_frames": n - stepped,
+        "launches": launches, "launches_warm_up": warm,
+        "launches_per_chunk_stepped_frame": {k_: v / max(stepped, 1) for k_, v in launches.items()},
+        "plain_calls": plain_calls, "mapper_errors": am.errors if am is not None else [],
+        "native_covis": native.get_lib() is not None,
+        "frontend_stages": fe_stats, "mapper_stages": map_stats,
+        "max_memory_allocated": peak_mem, "memory_allocated_before": mem_before,
+    }
+    emit(result)
+    failures = []
+    if fids != list(range(n)):
+        failures.append(f"frames not retired in order: {len(fids)} of {n}")
+    if tracked_timed != n_timed:
+        failures.append(f"{n_timed - tracked_timed} timed frames not tracked")
+    if not ate < ATE_GATE_M:
+        failures.append(f"ATE {ate} m >= {ATE_GATE_M}")
+    if launches["hamming_matrix"] == 0:
+        failures.append("the matrix entry never launched on the main path")
+    if launches["mutual_best_match"] < 2 * stepped:
+        failures.append(f"the fused entry launched fewer than 2 times per chunk-stepped frame: "
+                        f"{launches['mutual_best_match']} for {stepped}")
+    if any(plain_calls.values()):
+        failures.append(f"plain versions called on the card: {plain_calls}")
+    if failures:
+        raise SystemExit("system failed: " + "; ".join(failures))
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU",
@@ -678,16 +908,20 @@ def main():
     hamming, match, kernel_launches = phase_kernel(dev)
     slice_result, ctx = phase_slice(dev)
     phase_breakdown(dev, ctx)
+    system = phase_system(dev)
     source = "orb_slam3_modified_tpu_torch/csrc/hamming.cu"
     replaces = "orb_slam3_modified_tpu/ops/pallas_kernels.py:31"
     hot_h, hot_m = hamming[(4096, 1024)], match[(4096, 1024, True)]
     emit({"kernels": [
         {
             "name": "hamming_matrix", "route": "cuda", "source": source, "replaces": replaces,
-            # off the main path since the matcher takes the fused entry (the slice checks
-            # it made 0 launches there); kernel_phase_calls counts the kernel phase's
-            # checks, warm-ups, captures and profiled calls
-            "launches": slice_result["launches"]["hamming_matrix"], "on_main_path": False,
+            # the system phase's searches (initialization, projection, the mapper)
+            # launch it; the chunk step does not (the slice checks 0 there);
+            # kernel_phase_calls counts the kernel phase's checks, warm-ups,
+            # captures and profiled calls
+            "launches": system["launches"]["hamming_matrix"], "on_main_path": True,
+            "launches_by_path": {"slice": slice_result["launches"]["hamming_matrix"],
+                                 "system": system["launches"]["hamming_matrix"]},
             "kernel_phase_calls": kernel_launches["hamming_matrix"],
             "max_abs_err": max(r["max_abs_err"] for r in hamming.values()),
             "ms": hot_h["kernel_ms"], "plain_ms": hot_h["plain_ms"],
@@ -696,7 +930,9 @@ def main():
         },
         {
             "name": "mutual_best_match", "route": "cuda", "source": source, "replaces": replaces,
-            "launches": slice_result["launches"]["mutual_best_match"], "on_main_path": True,
+            "launches": system["launches"]["mutual_best_match"], "on_main_path": True,
+            "launches_by_path": {"slice": slice_result["launches"]["mutual_best_match"],
+                                 "system": system["launches"]["mutual_best_match"]},
             "kernel_phase_calls": kernel_launches["mutual_best_match"],
             "max_abs_err": max(r["max_abs_err"] for r in match.values()),
             "ms": hot_m["kernel_ms"], "plain_ms": hot_m["plain_ms"],

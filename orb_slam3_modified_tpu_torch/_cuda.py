@@ -11,6 +11,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -20,6 +21,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the tracker and the mapper thread may reach an unbuilt kernel at once
+_BUILD_LOCK = threading.Lock()
 
 
 def cuda_tool(name: str = "nvcc") -> str:
@@ -53,6 +56,10 @@ class CudaKernel:
         """Compile if the library is missing or older than its source, or
         always with force (before the library is first loaded), then load it.
         Returns build_info (None when an existing build was used)."""
+        with _BUILD_LOCK:
+            return self._build(force)
+
+    def _build(self, force):
         if self._fn is not None:
             return self.build_info
         stale = not self.library.exists() or self.library.stat().st_mtime < self.source.stat().st_mtime

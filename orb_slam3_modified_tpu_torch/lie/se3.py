@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import so3
@@ -33,6 +34,31 @@ class SE3(NamedTuple):
     def apply(self, p):
         """Transform points p (..., 3) (broadcasts over leading axes)."""
         return _mv(self.R, p) + self.t
+
+
+class SE3np(NamedTuple):
+    """SE3 on the host: the same (R, t) pair as numpy arrays.
+
+    The host half (tracker, mapper, chunk driver) keeps frame and keyframe
+    poses in numpy between device solves; the reference keeps them in its
+    SE3 with numpy leaves."""
+
+    R: np.ndarray
+    t: np.ndarray
+
+    @staticmethod
+    def identity(dtype=np.float32):
+        return SE3np(np.eye(3, dtype=dtype), np.zeros(3, dtype))
+
+    def inverse(self):
+        Rt = np.swapaxes(self.R, -1, -2)
+        return SE3np(Rt, -np.einsum("...ij,...j->...i", Rt, self.t))
+
+    def __matmul__(self, other: "SE3np") -> "SE3np":
+        return SE3np(self.R @ other.R, np.einsum("...ij,...j->...i", self.R, other.t) + self.t)
+
+    def apply(self, p):
+        return np.einsum("...ij,...j->...i", self.R, p) + self.t
 
 
 def exp(xi):

@@ -47,12 +47,20 @@ def popcount32(x):
     return (low & 0x3F) + (x < 0).to(x.dtype)
 
 
+def _pm1(d):
+    """(N, 8) int32 -> (N, 256) float32 of +-1 (bit set -> -1)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=d.device)
+    bits = (d[..., None] >> shifts) & 1
+    return (1 - 2 * bits.reshape(d.shape[0], N_WORDS * 32)).to(torch.float32)
+
+
 def hamming_matrix_plain(d1, d2):
-    """(N1, 8) x (N2, 8) int32 -> (N1, N2) int32, one word at a time."""
-    out = torch.zeros((d1.shape[0], d2.shape[0]), dtype=torch.int32, device=d1.device)
-    for w in range(N_WORDS):
-        out += popcount32(d1[:, None, w] ^ d2[None, :, w])
-    return out
+    """(N1, 8) x (N2, 8) int32 -> (N1, N2) int32, as a product of +-1 bits:
+    popc(a ^ b) = (256 - <pm1(a), pm1(b)>) / 2. Every partial sum is an
+    integer of magnitude <= 256, so the float32 product is exact in any
+    summation order (TF32 too: +-1 is exact in it)."""
+    dot = _pm1(d1) @ _pm1(d2).T
+    return ((MAX_DIST - dot) / 2).to(torch.int32)
 
 
 def check_desc(d, name):

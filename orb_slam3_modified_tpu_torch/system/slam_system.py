@@ -1,0 +1,242 @@
+"""Top-level SLAM system, monocular, without loop closing.
+
+Port of orb_slam3_modified_tpu/system/slam_system.py (System: ctor :41,
+TrackMonocular :426, Shutdown :555, trajectory savers :609-700 of
+src/System.cc; the Atlas recovery of Tracking::CreateMapInAtlas,
+src/Tracking.cc:2665, :2020-2026). It wires the tracker and the local
+mapper over the shared numpy map, handles LOST -> new map, and writes
+trajectories in TUM format.
+
+This slice runs the monocular sensor without loop closing. Loop closing and
+relocalization (ROADMAP item 8), stereo / RGB-D (item 9) and the inertial
+sensors (item 10) are later slices: asking for them raises a ValueError
+instead of running without them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..cameras import Camera
+from ..features.extractor import ExtractorConfig, Features, ORBExtractor
+from ..lie import so3
+from ..mapping.local_mapper import LocalMapper, LocalMapperConfig
+from ..slam_map.map_state import MapState
+from ..tracking.tracker import (
+    LOST, NOT_INITIALIZED, RECENTLY_LOST, Tracker, TrackerConfig, features_to_host,
+)
+from ..utils.fetch import upload
+from ..utils.timing import TimeStats
+
+MONOCULAR = 0
+STEREO = 1
+RGBD = 2
+IMU_MONOCULAR = 3
+IMU_STEREO = 4
+IMU_RGBD = 5
+
+_LATER = {
+    STEREO: "stereo comes with ROADMAP item 9",
+    RGBD: "RGB-D comes with ROADMAP item 9",
+    IMU_MONOCULAR: "the inertial sensors come with ROADMAP item 10",
+    IMU_STEREO: "the inertial sensors come with ROADMAP items 9-10",
+    IMU_RGBD: "the inertial sensors come with ROADMAP items 9-10",
+}
+
+
+@dataclasses.dataclass
+class SystemConfig:
+    cam: Camera = None
+    sensor: int = MONOCULAR
+    max_kf: int = 512
+    max_mp: int = 65536
+    feat_cap: int = 1024
+    use_loop_closing: bool = True  # the reference's default; not yet ported
+    min_kfs_for_new_map: int = 10  # reference: > 10 KFs -> new map on LOST
+    extractor: ExtractorConfig = None
+    device: str = "cuda"
+
+
+class SlamSystem:
+    def __init__(self, cfg: SystemConfig):
+        if cfg.sensor != MONOCULAR:
+            raise ValueError(f"sensor {cfg.sensor}: this port runs the monocular sensor; "
+                             f"{_LATER.get(cfg.sensor, 'unknown sensor')}")
+        if cfg.use_loop_closing:
+            raise ValueError("use_loop_closing=True: loop closing and relocalization come with "
+                             "ROADMAP item 8; pass use_loop_closing=False")
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.map = MapState.create(cfg.max_kf, cfg.max_mp, cfg.feat_cap)
+        self.tcfg = TrackerConfig(cam=cfg.cam)
+        self.tracker = Tracker(self.tcfg, self.map, device=self.device)
+        self.mapper = LocalMapper(LocalMapperConfig(), self.tcfg, self.map, device=self.device)
+        self.timing = TimeStats()
+        self.async_mapper = None
+        self.tracker.on_keyframe = self._on_keyframe
+        self.ecfg = cfg.extractor or ExtractorConfig(n_features=cfg.feat_cap)
+        self._extractor = None
+        self.poses = []  # (ts, T_cw 4x4 or None)
+        self._localization_only = False
+
+    # ------------------------------------------------------ mode / reset API
+    def activate_localization_mode(self):
+        """Tracking only: the map is frozen, no keyframes are created
+        (System::ActivateLocalizationMode, include/System.h:156)."""
+        self._localization_only = True
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        """System::DeactivateLocalizationMode (include/System.h:160)."""
+        self._localization_only = False
+        self.tracker.only_tracking = False
+
+    def _clear_map(self, all_maps: bool):
+        m = self.map
+        for k in m.keyframe_indices(all_maps=all_maps):
+            m.remove_keyframe(int(k))
+        mps = m.point_indices(all_maps=all_maps)
+        if len(mps):
+            m.remove_point(mps)
+
+    def reset(self):
+        """Full reset: every map of the atlas and the tracker state
+        (System::Reset -> Tracking::Reset, src/Tracking.cc:3782)."""
+        self._clear_map(all_maps=True)
+        m = self.map
+        m.active_map = 0
+        m.n_maps = 1
+        m.culled_redirect.clear()
+        self._reset_tracker()
+        self.poses = []
+
+    def reset_active_map(self):
+        """Reset only the active map (Tracking::ResetActiveMap,
+        src/Tracking.cc:3843)."""
+        self._clear_map(all_maps=False)
+        self._reset_tracker()
+
+    def _reset_tracker(self):
+        t = self.tracker
+        t.state = NOT_INITIALIZED
+        t.init_frame = None
+        t.last = None
+        t.velocity = None
+        t.ref_kf = -1
+        t.lost_frames = 0
+        t.frames_since_kf = 0
+
+    # ------------------------------------------------------------------ API
+    def _extract(self, image) -> Features:
+        img = upload(np.asarray(image, np.float32), self.device)
+        if self._extractor is None:
+            self._extractor = ORBExtractor(self.ecfg, img.shape[0], img.shape[1],
+                                           device=self.device)
+        return features_to_host(Features(*(f[0] for f in self._extractor(img[None]))))
+
+    def track_monocular(self, image, ts: float):
+        """image: (H, W) grayscale [0, 255] -> T_cw (4, 4) or None
+        (System::TrackMonocular, src/System.cc:426)."""
+        with self.timing.measure("extract"):
+            feats = self._extract(image)
+        return self.track_features(feats, ts)
+
+    def track_features(self, feats: Features, ts: float):
+        """Feature-level entry: host Features (numpy, uint32 descriptors)."""
+        with self.timing.measure("track"):
+            T = self.tracker.track(feats, ts)
+        self._handle_loss()
+        self.poses.append((ts, T))
+        return T
+
+    def _on_keyframe(self, k: int):
+        with self.timing.measure("local_mapping"):
+            self.mapper.on_keyframe(k)
+
+    def make_chunked_frontend(self, chunk: int = 16, lag: int = 1, async_mapping: bool = True,
+                              stereo: bool = False, rgbd: bool = False):
+        """Chunk-pipelined image frontend (tracking/chunked.py): one device
+        step extracts and tracks `chunk` frames, and local mapping moves to a
+        worker thread (the reference's tracking / local-mapping threads,
+        src/System.cc:197). Feed it track_image(img, ts) and read the retired
+        (frame_id, ts, T_cw | None) triples; call flush() at the end of the
+        sequence, then shutdown()."""
+        from ..tracking.chunked import ChunkedTracker
+
+        lock = None
+        if async_mapping:
+            from ..mapping.async_mapper import AsyncLocalMapper
+
+            am = AsyncLocalMapper(self.mapper)
+            self.async_mapper = am
+            self.tracker.on_keyframe = am.on_keyframe
+            self.tracker.mapper_busy_fn = am.busy
+            lock = am.lock
+        ct = ChunkedTracker(self.tracker, self.ecfg, chunk=chunk, lag=lag, map_lock=lock,
+                            stereo=stereo, rgbd=rgbd)
+        # the worker maps one retire's keyframes while the next chunk is
+        # dispatched; the next retire waits for it (tracking/chunked.py)
+        ct.async_mapper = self.async_mapper
+        ct.loss_fn = self._handle_loss
+        return ct
+
+    def _handle_loss(self):
+        """Multi-map recovery: on LOST, keep the map and start a new one, or
+        reset a map of <= min_kfs_for_new_map keyframes
+        (src/Tracking.cc:2020-2026)."""
+        t = self.tracker
+        if t.state != LOST:
+            return
+        if self._localization_only:
+            # frozen map: stay RECENTLY_LOST and keep trying against it
+            t.state = RECENTLY_LOST
+            t.lost_frames = 0
+            return
+        if self.map.n_keyframes() > self.cfg.min_kfs_for_new_map:
+            self.map.create_new_map()
+        else:
+            self._clear_map(all_maps=False)
+        t.state = NOT_INITIALIZED
+        t.init_frame = None
+        t.last = None
+        t.velocity = None
+        t.ref_kf = -1
+        t.lost_frames = 0
+
+    # ------------------------------------------------------------ trajectory
+    @staticmethod
+    def _tum_line(ts, T_wc):
+        q = so3.quat_from_mat(torch.as_tensor(T_wc[:3, :3], dtype=torch.float32)).numpy()
+        t = T_wc[:3, 3]
+        return (f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
+                f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}")
+
+    def save_trajectory_tum(self, path: str):
+        """TUM format: ts tx ty tz qx qy qz qw (System::SaveTrajectoryTUM,
+        src/System.cc:609)."""
+        lines = [self._tum_line(ts, np.linalg.inv(T))
+                 for ts, _, T in self.tracker.absolute_trajectory()]
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        m = self.map
+        kfs = m.keyframe_indices(all_maps=True)
+        lines = []
+        for k in kfs[np.argsort(m.kf_ts[kfs])]:
+            T_wc = np.eye(4)
+            T_wc[:3, :3] = m.kf_R[k].T
+            T_wc[:3, 3] = -m.kf_R[k].T @ m.kf_t[k]
+            lines.append(self._tum_line(m.kf_ts[k], T_wc))
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+    def shutdown(self):
+        """System::Shutdown (src/System.cc:555): drain and stop the mapper."""
+        if self.async_mapper is not None:
+            self.async_mapper.flush()
+            self.async_mapper.shutdown()
+        return self.timing.summary()

@@ -1,18 +1,46 @@
-"""Chunked tracking: K frames per call, everything on the device.
+"""Chunked tracking: K frames per device step, the host half behind it.
 
-Port of make_chunk_step from orb_slam3_modified_tpu/tracking/chunked.py
-(monocular): batched ORB extraction over the chunk, then the fused track step
-for each frame in order, carrying DeviceTrackState. The host driver around it
-(ChunkedTracker: cache refresh, keyframe replay, slow path) is not ported yet.
+Port of orb_slam3_modified_tpu/tracking/chunked.py, monocular:
+- `make_chunk_step` / ChunkStep: batched ORB extraction over the chunk, then
+  the fused track step for each frame in order, carrying DeviceTrackState.
+- `ChunkedTracker`: the host driver over tracking/tracker.py. It buffers
+  frames (each uploaded as it arrives), dispatches a chunk, and starts the
+  readback of the chunk's outputs and features into pinned host memory; a
+  chunk later (lag) it retires the frames: replays the keyframe policy per
+  frame (NeedNewKeyFrame, src/Tracking.cc:3067), creates keyframes
+  retroactively, and refreshes the device map cache from the numpy map.
+  Initialization and loss recovery go through the per-frame slow path
+  (Tracker.track), and a mid-chunk loss replays the kept host images through
+  it until tracking recovers.
+
+Stereo, RGB-D and inertial chunks are later slices (ROADMAP items 9-10).
+Where the reference pads a short chunk with copies of its last frame (a
+fixed shape for XLA) and carries the device state through them, the port
+runs the chunk at its own length.
 """
 from __future__ import annotations
 
+import logging
+import threading
+from collections import deque
+
+import numpy as np
 import torch
 from torch import nn
 
 from .. import resolve_device
-from ..features.extractor import ExtractorConfig, ORBExtractor
-from .fused import DeviceTrackState, MapCache, StepOutput, TrackStep
+from ..features.extractor import ExtractorConfig, Features, ORBExtractor
+from ..lie.se3 import SE3np
+from ..slam_map.map_state import NO_POINT
+from ..utils.fetch import Readback, upload
+from ..utils.timing import TimeStats
+from .fused import CACHE_CAP, DeviceTrackState, MapCache, StepOutput, TrackStep
+from .tracker import LOST, OK, RECENTLY_LOST, FrameRecord, features_to_host
+
+log = logging.getLogger(__name__)
+
+HARD_FLOOR = 12  # inliers below which a chunk-stepped frame counts as lost
+LOW_STREAK_LIMIT = 3  # frames under min_inliers_local before a forced keyframe
 
 
 class ChunkStep(nn.Module):
@@ -42,3 +70,386 @@ def make_chunk_step(cam, inv_s2_levels, ecfg: ExtractorConfig, rounds=3, iters=6
     """The chunk step as a ChunkStep module; frames must be cam.height x cam.width."""
     return ChunkStep(cam, inv_s2_levels, ecfg, rounds, iters, device=device)
 
+
+class _PendingChunk:
+    __slots__ = ("fids", "tss", "n_valid", "readback", "outs", "feats", "cache_ids", "imgs")
+
+    def __init__(self, fids, tss, readback, cache_ids, imgs):
+        self.fids = fids
+        self.tss = tss
+        self.n_valid = len(fids)
+        self.readback = readback  # (StepOutput, Features) copying home
+        self.outs = self.feats = None  # host copies, once retired
+        self.cache_ids = cache_ids
+        self.imgs = imgs  # host copies, for the slow-path replay after a loss
+
+
+class ChunkedTracker:
+    """Chunk-pipelined frontend over tracking/tracker.py.
+
+    track_image() returns the (frame_id, ts, T_abs 4x4 | None) triples of
+    the frames this call retired (frames come back up to chunk * (lag + 1)
+    frames later); flush() retires the rest."""
+
+    def __init__(self, tracker, ecfg: ExtractorConfig, chunk: int = 16, lag: int = 1,
+                 map_lock=None, rounds: int = 3, iters: int = 6, stereo: bool = False,
+                 rgbd: bool = False):
+        if stereo or rgbd:
+            raise NotImplementedError("stereo / RGB-D chunks: ROADMAP item 9")
+        if tracker.cfg.cam.height == 0 or tracker.cfg.cam.width == 0:
+            raise ValueError("the camera needs its image size for the chunk step")
+        self.tracker = tracker
+        self.cfg = tracker.cfg
+        self.device = tracker.device
+        self.ecfg = ecfg
+        self.chunk = chunk
+        self.lag = lag
+        # reentrant: the retire loop holds it per frame, keyframe creation and
+        # the slow path take it again on the same thread
+        self.map_lock = map_lock or threading.RLock()
+        self.rounds = rounds
+        self.iters = iters
+        self._step = None
+        self._buf = []  # [(fid, ts, img_u8 host, img device)]
+        self._pending: deque[_PendingChunk] = deque()
+        self.state: DeviceTrackState | None = None
+        self.cache: MapCache | None = None
+        self.cache_ids: np.ndarray | None = None
+        # consecutive frames below min_inliers_local: one dip must not
+        # trigger the slow-path replay (the reference tolerates ~3 s of
+        # RECENTLY_LOST, src/Tracking.cc:1990); below HARD_FLOOR it does
+        self._low_streak = 0
+        self.stats = TimeStats()  # per-stage wall time
+        # the AsyncLocalMapper, if mapping runs on a worker: its keyframes are
+        # released at the end of each retire and drained at the start of the
+        # next, so the worker runs during the dispatch in between
+        self.async_mapper = None
+        self.loss_fn = None  # Atlas recovery on LOST (SlamSystem._handle_loss)
+        # device-state anchors: [(kf, frame_id, T_kw 4x4)] recorded when the
+        # cache is built; a background commit that moves the map before the
+        # next retire is applied to the device state through the anchor's
+        # pose delta
+        self._anchor = None
+
+    # ------------------------------------------------------------- cache
+    def refresh_cache(self):
+        """Rebuild the device point cache from the current local map: the
+        whole active map while it fits CACHE_CAP, else the reference
+        keyframe's covisibility window. One pinned upload per field."""
+        t = self.tracker
+        m = t.map
+        k = t.ref_kf
+        if k < 0 or not m.kf_valid[k]:
+            return
+        all_mp = m.point_indices()
+        if len(all_mp) <= CACHE_CAP:
+            mp = all_mp
+        else:
+            window = [k] + [int(x) for x in m.best_covisible(k, 10, min_weight=5)]
+            obs = m.kf_obs[window]
+            mp = np.unique(obs[obs >= 0])
+            mp = mp[m.mp_valid[mp]][:CACHE_CAP]
+        n = len(mp)
+        pos = np.zeros((CACHE_CAP, 3), np.float32)
+        desc = np.zeros((CACHE_CAP, 8), np.uint32)
+        valid = np.zeros(CACHE_CAP, bool)
+        ids = np.full(CACHE_CAP, -1, np.int32)
+        pos[:n] = m.mp_pos[mp]
+        desc[:n] = m.mp_desc[mp]
+        valid[:n] = True
+        ids[:n] = mp
+        dev = self.device
+        self.cache = MapCache(upload(pos, dev), upload(desc.view(np.int32), dev),
+                              upload(valid, dev), upload(ids, dev))
+        self.cache_ids = ids
+
+    def _sync_state_from_tracker(self):
+        t = self.tracker
+        T = t.last.T_cw
+        T_prev = T if t.velocity is None else t.velocity.inverse() @ T
+        up = lambda a: upload(np.asarray(a, np.float32), self.device)  # noqa: E731
+        self.state = DeviceTrackState(
+            R=up(T.R), t=up(T.t), R_prev=up(T_prev.R), t_prev=up(T_prev.t),
+            ok=torch.ones((), dtype=torch.bool, device=self.device),
+        )
+
+    def _record_anchor(self):
+        """Record the poses of the reference keyframe AND two close
+        covisibles (map lock held): culling between dispatches must not
+        leave the device state uncorrected."""
+        t = self.tracker
+        m = t.map
+        k = t.ref_kf
+        if k < 0 or not m.kf_valid[k]:
+            self._anchor = None
+            return
+        anchors = []
+        for a in [int(k)] + [int(x) for x in m.best_covisible(int(k), 2, min_weight=5)]:
+            if m.kf_valid[a]:
+                anchors.append((a, int(m.kf_frame_id[a]), t._kf_matrix(a)))
+        self._anchor = anchors or None
+
+    def _apply_anchor_correction(self):
+        """Apply the first surviving anchor's pose delta since the last
+        record to the device state (map lock held): the async local BA moved
+        the map between dispatches."""
+        if self._anchor is None or self.state is None:
+            return
+        m = self.tracker.map
+        for ak, afid, aT in self._anchor:
+            if not (m.kf_valid[ak] and int(m.kf_frame_id[ak]) == afid):
+                continue
+            W = np.linalg.inv(aT) @ self.tracker._kf_matrix(ak)
+            if np.abs(W - np.eye(4)).max() > 1e-7:
+                self._apply_world_correction(W)
+            return
+        log.info("anchor keyframes all culled; device state uncorrected")
+
+    def _apply_world_correction(self, W):
+        """T' = T @ W for the device pose and its predecessor, on the device."""
+        Wt = torch.as_tensor(W, dtype=torch.float32).to(self.device)
+        bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], device=self.device)
+
+        def corr(R, tt):
+            T4 = torch.cat([torch.cat([R, tt[:, None]], dim=1), bottom], dim=0) @ Wt
+            return T4[:3, :3], T4[:3, 3]
+
+        R1, t1 = corr(self.state.R, self.state.t)
+        R0, t0 = corr(self.state.R_prev, self.state.t_prev)
+        self.state = DeviceTrackState(R1, t1, R0, t0, self.state.ok)
+
+    def _chunk_step(self) -> ChunkStep:
+        if self._step is None:
+            self._step = make_chunk_step(self.tracker.cam, self.cfg.inv_level_sigma2(), self.ecfg,
+                                         self.rounds, self.iters, device=self.device)
+        return self._step
+
+    # -------------------------------------------------------------- track
+    def track_image(self, img, ts: float, img_right=None, imu_samples=None, depth_img=None):
+        """img: (H, W) uint8 (or castable). Returns the retired frames."""
+        if img_right is not None or depth_img is not None:
+            raise NotImplementedError("stereo / RGB-D chunks: ROADMAP item 9")
+        if imu_samples is not None:
+            raise NotImplementedError("inertial chunks: ROADMAP item 10")
+        t = self.tracker
+        retired = []
+        if t.state != OK or t.ref_kf < 0:
+            # everything dispatched or buffered lands first
+            retired += self.flush()
+            retired.append(self._track_slow(np.asarray(img, np.uint8), ts))
+            return retired
+        img_h = np.asarray(img, np.uint8)
+        with self.stats.measure("upload"):
+            img_d = upload(img_h, self.device)  # one frame's copy as it arrives
+        self._buf.append((t.frame_id, ts, img_h, img_d))
+        t.frame_id += 1
+        # while tracking sags, dispatch every 4 frames so keyframes and cache
+        # refreshes land sooner
+        effective = 4 if self._low_streak >= 2 else self.chunk
+        if len(self._buf) >= effective:
+            self._dispatch_buffer()
+            while len(self._pending) > self.lag:
+                retired += self._retire_chunk(self._pending.popleft())
+        return retired
+
+    def flush(self):
+        """Dispatch any buffered frames and retire every pending chunk."""
+        t = self.tracker
+        if (t.state != OK or t.ref_kf < 0) and (self._buf or self._pending):
+            # the fast path is unusable: replay everything through the slow path
+            replay = []
+            while self._pending:
+                q = self._pending.popleft()
+                replay += [(q.fids[i], q.tss[i], q.imgs[i]) for i in range(q.n_valid)]
+            replay += [(b[0], b[1], b[2]) for b in self._buf]
+            self._buf = []
+            results = []
+            for fid, ts, img in replay:
+                t.frame_id = fid
+                results.append(self._track_slow(img, ts))
+            return results
+        retired = []
+        if self._buf:
+            self._dispatch_buffer()
+        while self._pending:
+            retired += self._retire_chunk(self._pending.popleft())
+        return retired
+
+    # ------------------------------------------------------------ internal
+    def _drain_mapper(self):
+        """Hand the held keyframes to the async mapper and wait until it has
+        processed them (map lock not held)."""
+        if self.async_mapper is not None:
+            with self.stats.measure("mapper_wait"):
+                self.async_mapper.flush()
+
+    def _track_slow(self, img, ts):
+        """Per-frame slow path (initialization, recovery): the mapper is
+        drained before and after, so the frame sees, and the fast path
+        resumes on, a map no worker is changing."""
+        with self.stats.measure("slow_path"):
+            t = self.tracker
+            img_d = upload(np.asarray(img, np.uint8), self.device)
+            feats = self._chunk_step().extractor(img_d[None])
+            feats = features_to_host(Features(*(f[0] for f in feats)))
+            self._drain_mapper()
+            with self.map_lock:
+                fid = t.frame_id
+                T = t.track(feats, ts)
+                if t.state == LOST and self.loss_fn is not None:
+                    self.loss_fn()  # Atlas recovery: store the map / start fresh
+            self._drain_mapper()
+            with self.map_lock:
+                if t.state == OK:
+                    self.refresh_cache()
+                    self._sync_state_from_tracker()
+                    self._record_anchor()
+        return (fid, ts, T)
+
+    def _dispatch_buffer(self):
+        # the cache was built at the end of the last retire (or by the slow
+        # path); the map is not read here, the async mapper may be writing it
+        if self.state is None or self.cache is None:
+            with self.stats.measure("cache_refresh"), self.map_lock:
+                self.refresh_cache()
+                self._sync_state_from_tracker()
+                self._record_anchor()
+        step = self._chunk_step()
+        with self.stats.measure("dispatch"):
+            imgs_d = torch.stack([b[3] for b in self._buf])
+            self.state, outs, feats = step(self.state, self.cache, imgs_d)
+            # the outputs and the chunk's features start copying home now and
+            # are read a chunk later; keyframe creation at retire time is then
+            # pure host work
+            readback = Readback((outs, feats))
+        self._pending.append(_PendingChunk([b[0] for b in self._buf], [b[1] for b in self._buf],
+                                           readback, self.cache_ids,
+                                           [b[2] for b in self._buf]))
+        self._buf = []
+
+    @staticmethod
+    def _features(p: _PendingChunk, i) -> Features:
+        """Host features of frame i of a retired chunk (descriptors uint32)."""
+        f = p.feats
+        return Features(f.uv[i], f.desc[i].view(np.uint32), f.angle[i], f.level[i],
+                        f.response[i], f.valid[i])
+
+    def _retire_chunk(self, p: _PendingChunk):
+        """Retire a chunk on a quiet map: wait for the keyframes released at
+        the last retire, carry the mapper's moves into the device state,
+        replay the frames, build the next dispatch's cache, then release
+        this retire's keyframes to the worker."""
+        am = self.async_mapper
+        if am is not None:
+            with self.stats.measure("mapper_wait"):
+                am.wait_drained()
+        with self.stats.measure("retire_sync"):
+            p.outs, p.feats = p.readback.wait()
+            p.readback = None
+        with self.stats.measure("retire_host"):
+            with self.map_lock:
+                self._apply_anchor_correction()
+            results = self._retire_frames(p, [])
+        if self.state is not None:
+            with self.stats.measure("cache_refresh"), self.map_lock:
+                self.refresh_cache()
+                self._record_anchor()
+        if am is not None:
+            am.release()
+        return results
+
+    def _retire_frames(self, p, results):
+        for i in range(p.n_valid):
+            # per-frame lock scope; the replay (which drains the worker)
+            # runs outside it
+            with self.map_lock:
+                replay_from = self._retire_one(p, i, results)
+            if replay_from is not None:
+                results += self._replay_after_loss(p, replay_from)
+                return results
+        return results
+
+    def _retire_one(self, p, i, results):
+        """Retire frame i of chunk p (map lock held). Returns the index to
+        replay from after a loss, else None."""
+        t = self.tracker
+        m = t.map
+        cfg = self.cfg
+        R_all, t_all, n_inl_all, obs_cache_all = p.outs
+        fid, ts = p.fids[i], p.tss[i]
+        n_inl = int(n_inl_all[i])
+        R, tt = R_all[i], t_all[i]
+        T = SE3np(R, tt)
+        obs_mp = np.full(self.ecfg.n_features, NO_POINT, np.int32)
+        hit = obs_cache_all[i] >= 0
+        obs_mp[hit] = p.cache_ids[obs_cache_all[i][hit]]
+        stale = (obs_mp != NO_POINT) & ~m.mp_valid[np.maximum(obs_mp, 0)]
+        obs_mp[stale] = NO_POINT
+        T_abs = np.eye(4)
+        T_abs[:3, :3] = R
+        T_abs[:3, 3] = tt
+        self._low_streak = self._low_streak + 1 if n_inl < cfg.min_inliers_local else 0
+        if n_inl < HARD_FLOOR:
+            # lost mid-chunk: the rest of this chunk and every later frame
+            # replays through the per-frame slow path
+            log.info("chunked loss at frame %d: n_inl=%d (kfs=%d mps=%d)", fid, n_inl,
+                     m.n_keyframes(), m.n_points())
+            self._low_streak = 0
+            t.state = RECENTLY_LOST
+            t.last = FrameRecord(self._features(p, i), T, obs_mp, ts, fid)
+            self.state = None
+            self.cache = None
+            results.append((fid, ts, None))
+            return i + 1  # the caller replays outside the lock
+        # a sagging-but-alive streak: force one keyframe (longer cooldown than
+        # the policy's) and stay on the fast path
+        force_kf = (self._low_streak >= LOW_STREAK_LIMIT and n_inl >= 15
+                    and t.frames_since_kf + 1 >= 2 * cfg.min_frames_between_kf)
+        if force_kf:
+            self._low_streak = 0
+        rec = FrameRecord(self._features(p, i), T, obs_mp, ts, fid)
+        if t.last is not None:
+            vR = R @ t.last.T_cw.R.T
+            t.velocity = SE3np(vR, tt - vR @ t.last.T_cw.t)
+        t.last = rec
+        t.frames_since_kf += 1
+        t.n_last_inliers = n_inl
+        ref = t.ref_kf
+        if ref >= 0 and m.kf_valid[ref]:
+            t.trajectory.append((ts, fid, ref, int(m.kf_frame_id[ref]),
+                                 T_abs @ np.linalg.inv(t._kf_matrix(ref)), T_abs))
+        else:
+            t.trajectory.append((ts, fid, -1, -1, T_abs, T_abs))
+        if force_kf or t._need_new_keyframe(n_inl):
+            with self.stats.measure("keyframe"):
+                t._create_keyframe(rec)
+                # a synchronous mapper may have moved the new keyframe: carry
+                # the correction W into the device state
+                W = np.linalg.inv(T_abs) @ t._kf_matrix(t.ref_kf)
+                if np.abs(W - np.eye(4)).max() > 1e-9 and self.state is not None:
+                    self._apply_world_correction(W)
+                self._record_anchor()
+        results.append((fid, ts, T_abs))
+        return None
+
+    def _replay_after_loss(self, p: _PendingChunk, start: int):
+        """Feed the frames after a mid-chunk loss through the slow path until
+        the tracker recovers, then hand the rest back to the fast path."""
+        t = self.tracker
+        results = []
+        replay = [(p.fids[i], p.tss[i], p.imgs[i]) for i in range(start, p.n_valid)]
+        while self._pending:
+            q = self._pending.popleft()
+            replay += [(q.fids[i], q.tss[i], q.imgs[i]) for i in range(q.n_valid)]
+        replay += [(b[0], b[1], b[2]) for b in self._buf]
+        self._buf = []
+        for j, (fid, ts, img) in enumerate(replay):
+            if t.state == OK and t.ref_kf >= 0 and j > 0:
+                for fid2, ts2, img2 in replay[j:]:
+                    t.frame_id = fid2
+                    results += self.track_image(img2, ts2)
+                    t.frame_id = max(t.frame_id, fid2 + 1)
+                return results
+            t.frame_id = fid  # keep the original frame ids through the replay
+            results.append(self._track_slow(img, ts))
+        return results

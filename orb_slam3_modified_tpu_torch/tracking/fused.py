@@ -29,6 +29,9 @@ from ..lie.se3 import SE3
 from ..optim.pose_opt import pose_optimization
 
 
+CACHE_CAP = 4096  # device-resident local-map point budget
+
+
 def _branch_free(t) -> bool:
     """True while a CUDA graph is being captured on t's device, where the
     recovery gate cannot be read on the host."""

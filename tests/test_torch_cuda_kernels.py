@@ -209,3 +209,130 @@ def test_chunk_step_kernel_path_equals_plain_path():
     assert torch.equal(outs.obs_cache_idx, outs_p.obs_cache_idx)
     err = torch.linalg.norm(outs.t.cpu() - T.t[2:6], dim=-1)
     assert float(err.max()) < 0.05
+
+
+# ---- the host half's matches and local BA on the card
+
+
+@pytest.mark.cuda
+def test_search_by_projection_on_the_matrix_kernel_equals_plain():
+    """search_by_projection on CUDA tensors takes the matrix entry (one
+    launch) and the torch reductions; equal to the plain matcher bit for bit."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    n_p, n_f = 2048, 1024
+    f_uv = (rng.random((n_f, 2)) * [752, 480]).astype(np.float32)
+    f_desc = rng.integers(0, 2**32, (n_f, 8), dtype=np.uint32)
+    src = rng.integers(0, n_f, n_p)
+    p_desc = f_desc[src].copy()
+    p_desc[:, 0] ^= rng.integers(0, 2**8, n_p, dtype=np.uint32)
+    p_uv = f_uv[src] + rng.normal(0, 3, (n_p, 2)).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    args = (t(p_uv), t(rng.integers(0, 8, n_p).astype(np.int32)),
+            convert.desc_from_uint32(p_desc, device=dev), t(rng.random(n_p) > 0.1),
+            t(f_uv), t(rng.integers(0, 8, n_f).astype(np.int32)),
+            convert.desc_from_uint32(f_desc, device=dev), t(rng.random(n_f) > 0.1),
+            t((15.0 * 1.2 ** np.arange(8)).astype(np.float32)))
+    before = th.HAMMING_KERNEL.launches
+    got = matcher.search_by_projection(*args, level_tol=1, max_dist=100, ratio=0.9)
+    torch.cuda.synchronize()
+    assert th.HAMMING_KERNEL.launches == before + 1
+    with mock.patch.object(matcher, "mutual_best_match", matcher.mutual_best_match_plain):
+        want = matcher.search_by_projection(*args, level_tol=1, max_dist=100, ratio=0.9)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,f", [(8, 1024), (3, 77)])
+def test_batched_mapper_match_is_one_launch_and_equals_plain(nb, f):
+    """The mapper's neighbour match: NB target sets concatenated into one
+    (F, NB*F) matrix launch, reductions per set; equal to NB plain matches."""
+    dev = _card()
+    rng = np.random.default_rng(nb * f)
+    d1 = rng.integers(0, 2**32, (f, 8), dtype=np.uint32)
+    d2 = np.stack([d1[rng.permutation(f)] for _ in range(nb)])
+    d2[..., 1] ^= rng.integers(0, 2**6, (nb, f), dtype=np.uint32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    desc1 = convert.desc_from_uint32(d1, device=dev)
+    desc2 = convert.desc_from_uint32(d2.reshape(-1, 8), device=dev).view(nb, f, 8)
+    v1, v2 = t(rng.random(f) > 0.1), t(rng.random((nb, f)) > 0.1)
+    mask = t(rng.random((nb, f, f)) > 0.5)
+    before = th.HAMMING_KERNEL.launches
+    got = matcher.batched_mutual_best_match(desc1, v1, desc2, v2, 50, 0.8, extra_mask=mask)
+    torch.cuda.synchronize()
+    assert th.HAMMING_KERNEL.launches == before + 1
+    for j in range(nb):
+        want = matcher.mutual_best_match_plain(desc1, v1, desc2[j].contiguous(), v2[j], 50, 0.8,
+                                               extra_mask=mask[j])
+        for g, w in zip(got, want):
+            assert torch.equal(g[j], w)
+
+
+def _ba_problem(rng, n_kf=6, n_pts=300):
+    """A small numpy BA problem: points in front of an arc of cameras,
+    perturbed; cameras 0 and 1 fixed (so the scale is fixed too)."""
+    from orb_slam3_modified_tpu_torch.lie.se3 import SE3np
+    from orb_slam3_modified_tpu_torch.optim.ba import BAProblem
+
+    pts = rng.uniform(-1.5, 1.5, (n_pts, 3)).astype(np.float32)
+    Rs, ts, cams, idx, uvs = [], [], [], [], []
+    for k in range(n_kf):
+        a = 0.08 * k
+        R = np.array([[np.cos(a), 0, -np.sin(a)], [0, 1, 0], [np.sin(a), 0, np.cos(a)]], np.float32)
+        t = np.array([0.3 * k, 0.0, 5.0], np.float32)
+        pc = pts @ R.T + t
+        uv = np.stack([458.0 * pc[:, 0] / pc[:, 2] + 367.0, 457.0 * pc[:, 1] / pc[:, 2] + 248.0], -1)
+        Rs.append(R)
+        ts.append(t)
+        cams.append(np.full(n_pts, k, np.int32))
+        idx.append(np.arange(n_pts, dtype=np.int32))
+        uvs.append(uv + rng.normal(0, 0.5, uv.shape))
+    t_all = np.stack(ts) + np.concatenate([np.zeros((2, 3)), rng.normal(0, 0.02, (n_kf - 2, 3))])
+    fixed = np.zeros(n_kf, bool)
+    fixed[:2] = True
+    O = n_kf * n_pts
+    return BAProblem(SE3np(np.stack(Rs), t_all.astype(np.float32)), fixed,
+                     (pts + rng.normal(0, 0.05, pts.shape)).astype(np.float32), np.ones(n_pts, bool),
+                     np.concatenate(cams), np.concatenate(idx),
+                     np.concatenate(uvs).astype(np.float32), np.ones(O, np.float32),
+                     np.ones(O, bool))
+
+
+@pytest.mark.cuda
+def test_local_ba_on_the_card_matches_the_cpu_port():
+    dev = _card()
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.mapping.local_mapper import _pad_problem
+    from orb_slam3_modified_tpu_torch.optim.ba import bundle_adjust, to_device
+
+    prob = _ba_problem(np.random.default_rng(0))
+    out = {}
+    for d in ("cpu", dev):
+        cam = Camera.pinhole(458.0, 457.0, 367.0, 248.0, 752, 480, device=d)
+        res = bundle_adjust(to_device(_pad_problem(prob, d), d), cam, 2, 5)
+        out[str(d)] = [x.cpu() for x in (res.T_cw.R[:6], res.T_cw.t[:6], res.points[:300],
+                                         res.obs_inlier[:1800])]
+    cpu, card = out["cpu"], out[str(dev)]
+    assert torch.equal(cpu[3], card[3])
+    for a, b in zip(cpu[:3], card[:3]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_local_ba_on_the_card_repeats_bit_for_bit():
+    """The BA's sums over observations add in one order every run, so two
+    solves of one problem agree to the bit (the async mapper's maps then
+    depend only on the frames)."""
+    dev = _card()
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.mapping.local_mapper import _pad_problem
+    from orb_slam3_modified_tpu_torch.optim.ba import bundle_adjust, to_device
+
+    prob = to_device(_pad_problem(_ba_problem(np.random.default_rng(1), n_kf=12, n_pts=600), dev), dev)
+    cam = Camera.pinhole(458.0, 457.0, 367.0, 248.0, 752, 480, device=dev)
+    a, b = (bundle_adjust(prob, cam, 2, 5) for _ in range(2))
+    for x, y in zip((a.T_cw.R, a.T_cw.t, a.points, a.obs_inlier, a.chi2),
+                    (b.T_cw.R, b.T_cw.t, b.points, b.obs_inlier, b.chi2)):
+        assert torch.equal(x, y)

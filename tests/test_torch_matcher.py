@@ -200,3 +200,116 @@ class TestMatcherCases:
             torch.tensor([10, 4, 7], dtype=torch.int32), 8,
         )
         assert keep.tolist() == [False, True, True]
+
+
+# The host half's searches (search_for_initialization, search_by_projection)
+# and the mapper's batched neighbour / fuse matches: exact idx / ok / dist.
+def _frame(rng, n, d_src=None, noise=2.0, flips=6):
+    """n features in a 752x480 frame; with d_src, copies of those
+    descriptors (a few bits off) a few px from `uv_src`."""
+    uv = (rng.random((n, 2)) * [752, 480]).astype(np.float32)
+    desc = _desc(rng, n)
+    if d_src is not None:
+        src_uv, src_desc = d_src
+        m = min(n, len(src_uv)) * 3 // 4
+        uv[:m] = src_uv[:m] + rng.normal(0, noise, (m, 2)).astype(np.float32)
+        desc[:m] = _flip_bits(src_desc[:m], flips, rng)
+    return uv, desc, (rng.random(n) * 2 * np.pi).astype(np.float32), rng.integers(0, 8, n).astype(np.int32)
+
+
+class TestHostSearchParity:
+    def test_search_for_initialization_exact(self):
+        rng = np.random.default_rng(21)
+        uv1, d1, a1, _ = _frame(rng, 300)
+        uv2, d2, a2, _ = _frame(rng, 280, (uv1 + 20.0, d1))
+        a2[: 200] = a1[: 200] - 0.3  # a dominant rotation
+        v1, v2 = rng.random(300) > 0.05, rng.random(280) > 0.05
+        want = jm.search_for_initialization(*(jnp.asarray(x) for x in (uv1, a1, d1, v1, uv2, a2, d2, v2)))
+        got = tm.search_for_initialization(
+            torch.from_numpy(uv1), torch.from_numpy(a1), _t(d1), torch.from_numpy(v1),
+            torch.from_numpy(uv2), torch.from_numpy(a2), _t(d2), torch.from_numpy(v2))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert got[1].sum() > 100
+
+    @pytest.mark.parametrize("radius,ratio", [(15.0, 0.9), (4.0, 0.8)])
+    def test_search_by_projection_exact(self, radius, ratio):
+        rng = np.random.default_rng(int(radius))
+        f_uv, f_d, _, f_lvl = _frame(rng, 256)
+        p_uv, p_d, _, p_lvl = _frame(rng, 200, (f_uv, f_d))
+        p_lvl[:150] = np.clip(f_lvl[:150] + rng.integers(-1, 2, 150), 0, 7)
+        p_valid, f_valid = rng.random(200) > 0.1, rng.random(256) > 0.1
+        r = (radius * 1.2 ** np.arange(8)).astype(np.float32)
+        want = jm.search_by_projection(
+            *(jnp.asarray(x) for x in (p_uv, p_lvl, p_d, p_valid, f_uv, f_lvl, f_d, f_valid, r)),
+            level_tol=1, max_dist=jm.TH_HIGH, ratio=ratio)
+        got = tm.search_by_projection(
+            torch.from_numpy(p_uv), torch.from_numpy(p_lvl), _t(p_d), torch.from_numpy(p_valid),
+            torch.from_numpy(f_uv), torch.from_numpy(f_lvl), _t(f_d), torch.from_numpy(f_valid),
+            torch.from_numpy(r), level_tol=1, max_dist=tm.TH_HIGH, ratio=ratio)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert got[1].sum() > 50
+
+    def test_rotation_consistency_mask_exact(self):
+        rng = np.random.default_rng(5)
+        a1 = (rng.random(400) * 2 * np.pi).astype(np.float32)
+        a2 = (rng.random(300) * 2 * np.pi).astype(np.float32)
+        idx = rng.integers(0, 300, 400)
+        a1[:250] = a2[idx[:250]] + 0.5 + rng.normal(0, 0.02, 250).astype(np.float32)
+        ok = rng.random(400) > 0.2
+        want = jm.rotation_consistency_mask(jnp.asarray(a1), jnp.asarray(a2), jnp.asarray(idx),
+                                            jnp.asarray(ok))
+        got = tm.rotation_consistency_mask(torch.from_numpy(a1), torch.from_numpy(a2),
+                                           torch.from_numpy(idx), torch.from_numpy(ok))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert 0 < got.sum() < ok.sum()
+
+
+def _mapper_inputs(seed, F=128, NB=8):
+    rng = np.random.default_rng(seed)
+    d_k = _desc(rng, F)
+    d_n = np.stack([_flip_bits(d_k[rng.permutation(F)], 6, rng) for _ in range(NB)])
+    d_n[:, : F // 4] = _desc(rng, F // 4)[None]
+    valid_n = rng.random((NB, F)) > 0.1
+    return rng, d_k, d_n, valid_n
+
+
+def test_batched_neighbor_match_exact():
+    from orb_slam3_modified_tpu.mapping import local_mapper as jlm
+    from orb_slam3_modified_tpu_torch.mapping import local_mapper as tlm
+
+    rng, d_k, d_n, valid_n = _mapper_inputs(1)
+    F, NB = d_k.shape[0], d_n.shape[0]
+    free_k = rng.random(F) > 0.2
+    r_k = np.concatenate([rng.normal(0, 0.3, (F, 2)), np.ones((F, 1))], 1).astype(np.float32)
+    r_n = np.concatenate([rng.normal(0, 0.3, (NB, F, 2)), np.ones((NB, F, 1))], 2).astype(np.float32)
+    E_n = rng.normal(0, 1, (NB, 3, 3)).astype(np.float32)
+    th_n = rng.uniform(0.0, 0.5, (NB, F)).astype(np.float32)  # half the pairs pass the gate
+    args = (d_k, free_k, r_k, d_n, valid_n, r_n, E_n, th_n)
+    want = jlm._batched_neighbor_match(*(jnp.asarray(x) for x in args))
+    got = tlm._batched_neighbor_match(_t(d_k), *(torch.from_numpy(x) for x in args[1:3]),
+                                      _t(d_n.reshape(-1, 8)).view(NB, F, 8),
+                                      *(torch.from_numpy(x) for x in args[4:]))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1].sum() > 0
+
+
+def test_batched_fuse_match_exact():
+    from orb_slam3_modified_tpu.mapping import local_mapper as jlm
+    from orb_slam3_modified_tpu_torch.mapping import local_mapper as tlm
+
+    rng, d_p, d_n, valid_n = _mapper_inputs(2)
+    F, NB = d_p.shape[0], d_n.shape[0]
+    uv_n = (rng.random((NB, F, 2)) * 100).astype(np.float32)
+    uv_pred = uv_n + rng.normal(0, 2.0, (NB, F, 2)).astype(np.float32)
+    val_p = rng.random((NB, F)) > 0.2
+    args = (d_p, val_p, d_n, valid_n, uv_pred, uv_n)
+    want = jlm._batched_fuse_match(*(jnp.asarray(x) for x in args))
+    got = tlm._batched_fuse_match(_t(d_p), torch.from_numpy(val_p),
+                                  _t(d_n.reshape(-1, 8)).view(NB, F, 8),
+                                  *(torch.from_numpy(x) for x in args[3:]))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1].sum() > 0
