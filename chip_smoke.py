@@ -36,17 +36,36 @@ before the last line:
              bench.py's headline scene (400 frames, the first 64 as warm-up,
              then the async mapper drained before the timer, as bench.py
              does), async local mapping on its own CUDA stream, loop closing
-             off. frames/s, chunk ms (with and without mapper work during
-             the dispatch, and the ms each ms of it costs), tracked frames,
-             keyframes, map points, scale-aligned ATE, the stage breakdown,
-             each Hamming entry's launches, plain-version calls, peak memory.
-             Fails unless every frame retires in order, every timed frame is
-             tracked, ATE < 0.25 m, the matrix entry launched, the fused
-             entry launched at least twice per chunk-stepped frame, and no
-             plain (CPU-path) matcher or Hamming version was called;
+             on (bench.py:387): the closer runs on the mapper worker after
+             each keyframe. frames/s, chunk ms (with and without mapper work
+             during the dispatch, and the ms each ms of it costs), tracked
+             frames, keyframes, map points, scale-aligned ATE, the stage
+             breakdown, the closer's counts, each Hamming entry's launches,
+             plain-version calls, peak memory. Fails unless every frame
+             retires in order, every timed frame is tracked, ATE < 0.25 m, the
+             matrix entry launched, the fused entry launched at least twice per
+             chunk-stepped frame, no plain (CPU-path) matcher or Hamming
+             version was called, and, when the closer neither closed, merged
+             nor relocalized, the map equals the one before loop closing was
+             ported (SYSTEM_RUN_I) to the bit;
+  loop       bench.py's ring scene (run_hard_scene): one full revolution of
+             400 frames at 752x480, 1024 features, chunk 8, lag 1, async
+             mapper, loop closing on, 64 warm-up frames, the mapper drained,
+             then timed. The system phase's numbers, plus maps, the closer's
+             counts and stage times (words, query, verify, correct, merge,
+             gba), relocalization attempts and successes, the largest map's
+             keyframe ATE, each verified keyframe pair with the match and
+             inlier counts its gates saw, and both entries' launches made by
+             the closer and by relocalization. Fails unless every frame retires in
+             order, no plain version is called, the fused entry was launched
+             by the closer or relocalization, tracked timed frames and ATE are
+             no worse than the JAX reference's on the same frames (REF_LOOP),
+             and, if the reference closed a loop or merged there, the port
+             did too;
 then one line {"kernels": [...]} (each entry's `launches` counted on the
-main path, the system phase, with the slice's count beside it in
-`launches_by_path`, and `kernel_phase_calls`) and, last,
+main path, the system phase, with the slice's and the loop phase's counts
+beside it in `launches_by_path`, the closer's and relocalization's share of
+the loop phase's in `loop_by_stage`, and `kernel_phase_calls`) and, last,
 {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when torch sees no CUDA device.
@@ -84,6 +103,18 @@ TRANS_GATE_M = 0.05
 N_SYSTEM_FRAMES = 400  # bench.py's headline run
 N_SYSTEM_WARM = 64
 ATE_GATE_M = 0.25  # tests/test_chunked.py:67
+N_LOOP_FRAMES = 400  # bench.py's run_hard_scene
+LOOP_CHUNK = 8  # bench.py's BENCH_CHUNK default for the ring scene
+# the JAX reference on the loop phase's frames (scripts/reference_system_counts.py
+# loop, CPU, async mapper, loop closing on; its runs differ with the threads'
+# timing): every timed frame tracked, no loop closed, no map merged, no
+# relocalization; ate_gate_m is the worst ATE of its runs
+REF_LOOP = {"tracked_timed": 336, "loops_closed": 0, "merges": 0,
+            "ate_gate_m": 0.16438958104690987}
+# the system phase before loop closing was ported (its repeatable result on an
+# NVIDIA H100 80GB HBM3, PERF.md's run I): with a closer that neither closes,
+# merges nor relocalizes, the map must come out the same to the bit
+SYSTEM_RUN_I = {"ate_m": 0.13359771593053277, "keyframes": 23, "map_points": 2079}
 
 
 def emit(obj):
@@ -724,16 +755,66 @@ def _count_plain_calls(stack):
     return calls
 
 
-def phase_system(dev, async_mapping=True, start=0):
-    """The main path end to end, as bench.py:357-449 drives the reference
-    (for scripts/system_repeat.py's comparisons: async_mapping=False runs
-    the mapper in the tracker's thread, start > 0 enters the orbit at that
-    frame)."""
+_RING = {}
+
+
+def _ring(cam):
+    """bench.py's ring scene (render_ring_sequence, run_hard_scene), rendered
+    once: one full revolution of 400 frames at 20 frames/s, radius 4 m, height
+    0.4, over the plane z = 2 m with a 2048^2 texture upsampled from a seeded
+    128^2 draw."""
+    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import (
+        make_texture, render_sequence, ring_trajectory,
+    )
+
+    if "frames" not in _RING:
+        T_all = ring_trajectory(N_LOOP_FRAMES)
+        _RING["T"] = T_all
+        with np.errstate(invalid="ignore"):  # rays parallel to the plane
+            _RING["frames"] = render_sequence(cam, T_all, make_texture(SEED, 128, 2048),
+                                              plane_z=2.0, plane_half=10.0)
+    return _RING["T"], _RING["frames"]
+
+
+def _count_loop_matches(stack):
+    """Patch the closer's and relocalization's matcher to count the launches
+    of each entry that each of them makes."""
+    from orb_slam3_modified_tpu_torch.features import matcher
+    from orb_slam3_modified_tpu_torch.loop import loop_closer, relocalization
+    from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
+
+    kernels = {"hamming_matrix": HAMMING_KERNEL, "mutual_best_match": matcher.MATCH_KERNEL}
+    launches = {key: dict.fromkeys(kernels, 0) for key in ("closer", "relocalization")}
+
+    def counted(module, key):
+        fn = module.mutual_best_match
+
+        def wrapper(*a, **k):
+            before = {name: kern.launches for name, kern in kernels.items()}
+            try:
+                return fn(*a, **k)
+            finally:
+                for name, kern in kernels.items():
+                    launches[key][name] += kern.launches - before[name]
+
+        stack.enter_context(mock.patch.object(module, "mutual_best_match", wrapper))
+
+    counted(loop_closer, "closer")
+    counted(relocalization, "relocalization")
+    return launches
+
+
+def _main_path(dev, scene, async_mapping=True, start=0):
+    """The main path end to end through the user's entry point, as bench.py
+    drives the reference: scene "system" is the headline run
+    (bench.py:357-449, chunk 16), "loop" the ring scene (run_hard_scene,
+    bench.py:121-201, chunk 8); loop closing on in both. Returns (the
+    phase's result line, the gate failures common to both)."""
     import contextlib
 
     from orb_slam3_modified_tpu_torch import native
     from orb_slam3_modified_tpu_torch.cameras import Camera
-    from orb_slam3_modified_tpu_torch.eval.ate import align_horn, ate_rmse
+    from orb_slam3_modified_tpu_torch.eval.ate import align_horn, ate_rmse, largest_map_ate
     from orb_slam3_modified_tpu_torch.features import matcher
     from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig
     from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
@@ -743,20 +824,25 @@ def phase_system(dev, async_mapping=True, start=0):
     cam = Camera.pinhole(458.654 * k, 457.296 * k, 367.215 * k, 248.375 * k,
                          width=FRAME_W, height=FRAME_H, device=dev)
     t0 = time.perf_counter()
-    T_all, frames = _headline(cam)  # rendered once, in the slice's set-up
+    if scene == "loop":
+        T_all, frames = _ring(cam)
+        chunk, n_full = LOOP_CHUNK, N_LOOP_FRAMES
+    else:
+        T_all, frames = _headline(cam)  # rendered once, in the slice's set-up
+        chunk, n_full = CHUNK, N_SYSTEM_FRAMES
     frames = frames[start:]
-    n = min(N_SYSTEM_FRAMES, len(frames))
+    n = min(n_full, len(frames))
     slam = SlamSystem(SystemConfig(cam=cam, feat_cap=N_FEATURES,
                                    extractor=ExtractorConfig(n_features=N_FEATURES),
-                                   use_loop_closing=False, device=str(dev)))
-    fe = slam.make_chunked_frontend(chunk=CHUNK, lag=1, async_mapping=async_mapping)
+                                   use_loop_closing=True, device=str(dev)))
+    fe = slam.make_chunked_frontend(chunk=chunk, lag=1, async_mapping=async_mapping)
     setup_s = time.perf_counter() - t0
     am = slam.async_mapper
     drain = am.flush if am is not None else (lambda: None)
     # host intervals of each chunk dispatch (with its frame count) and of
     # each keyframe the mapper thread processes: their overlap is the mapper
     # work that shared the host (and the GIL) with a chunk's dispatch
-    dispatches, mapper_work = [], []
+    dispatches, mapper_work, closer_ms = [], [], []
     dispatch, on_keyframe = fe._dispatch_buffer, slam.mapper.on_keyframe
 
     def timed_dispatch():
@@ -772,8 +858,21 @@ def phase_system(dev, async_mapping=True, start=0):
         finally:
             mapper_work.append((t, time.perf_counter()))
 
+    closer_on_keyframe = slam.closer.on_keyframe
+
+    def timed_closer(k_):
+        t = time.perf_counter()
+        try:
+            return closer_on_keyframe(k_)
+        finally:
+            closer_ms.append((time.perf_counter() - t) * 1e3)
+
     fe._dispatch_buffer = timed_dispatch
     slam.mapper.on_keyframe = timed_on_keyframe
+    if am is not None:
+        am.post_fn = timed_closer
+    else:
+        slam.closer.on_keyframe = timed_closer
     # keyframes created, and keyframe decisions taken with the mapper
     # backlogged (NeedNewKeyFrame then inserts only when tracking starves)
     kf_log = {"created": 0, "decisions_backlogged": 0}
@@ -797,6 +896,7 @@ def phase_system(dev, async_mapping=True, start=0):
     retired = []
     with contextlib.ExitStack() as stack:
         plain_calls = _count_plain_calls(stack)
+        loop_launches = _count_loop_matches(stack)
         HAMMING_KERNEL.launches = matcher.MATCH_KERNEL.launches = 0
         for i in range(N_SYSTEM_WARM):
             retired += fe.track_image(frames[i], ts=i / 20.0)
@@ -828,14 +928,18 @@ def phase_system(dev, async_mapping=True, start=0):
     ate, scale = ate_rmse(est, gt) if len(traj) >= 3 else (float("inf"), 0.0)
     half = [i for i, (_, f, _) in enumerate(traj) if f < n // 2]
     ate_half = ate_rmse(est[half], gt[half])[0] if len(half) >= 3 else float("inf")
-    # where along the orbit the error sits: the aligned error's mean over
-    # each tenth of the trajectory, and the scale fitted to each quarter
-    # alone (a drifting scale shows as a trend)
+    # where along the trajectory the error sits: the aligned error's mean
+    # over each tenth, and the scale fitted to each quarter alone (a
+    # drifting scale shows as a trend)
     err = align_horn(est.T, gt.T)[3] if len(traj) >= 3 else np.zeros(0)
     err_by_tenth = [float(e.mean()) for e in np.array_split(err, 10) if len(e)]
     scale_by_quarter = [ate_rmse(est[q], gt[q])[1] for q in np.array_split(np.arange(len(traj)), 4)
                         if len(q) >= 3]
-    full = [d for d in dispatches[n_warm_dispatch:] if d[2] == CHUNK]
+    m = slam.map
+    gt_by_fid = {f: -R[f + start].T @ t[f + start] for f in range(n)}
+    lm_ate, lm_scale, lm_kfs, _ = (largest_map_ate(m, gt_by_fid) if m.n_keyframes(all_maps=True) >= 3
+                                   else (float("inf"), 0.0, 0, -1))
+    full = [d for d in dispatches[n_warm_dispatch:] if d[2] == chunk]
     chunk_ms = [(d1 - d0) * 1e3 for d0, d1, _ in full]
     overlap_ms = [sum(max(0.0, min(d1, w1) - max(d0, w0)) for w0, w1 in mapper_work) * 1e3
                   for d0, d1, _ in full]
@@ -848,11 +952,14 @@ def phase_system(dev, async_mapping=True, start=0):
     stepped = sum(d[2] for d in dispatches)
     pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
     n_timed = n - N_SYSTEM_WARM
+    c = slam.closer
+    closer_stages = {name: {"total_ms": float(np.sum(v) * 1e3), "count": len(v)}
+                     for name, v in c.stats.samples.items()}
     result = {
-        "phase": "system", "start": start, "frames": n, "frame_cut": N_SYSTEM_FRAMES - n,
+        "phase": scene, "start": start, "frames": n, "frame_cut": n_full - n,
         "warm_frames": N_SYSTEM_WARM, "timed_frames": n_timed, "size": [FRAME_W, FRAME_H],
-        "n_features": N_FEATURES, "chunk": CHUNK, "lag": 1, "async_mapping": async_mapping,
-        "loop_closing": False, "setup_s": setup_s, "timed_wall_s": wall_s,
+        "n_features": N_FEATURES, "chunk": chunk, "lag": 1, "async_mapping": async_mapping,
+        "loop_closing": True, "setup_s": setup_s, "timed_wall_s": wall_s,
         "frames_per_s": n_timed / wall_s,
         "chunk_ms_p50": pct(chunk_ms, 50), "chunk_ms_p90": pct(chunk_ms, 90),
         "chunk_ms_mapper_idle_p50": pct(idle_ms, 50), "chunk_ms_mapper_busy_p50": pct(busy_ms, 50),
@@ -861,15 +968,30 @@ def phase_system(dev, async_mapping=True, start=0):
         "chunk_mapper_overlap_ms": overlap_ms, "chunk_ms_per_mapper_ms": slope,
         "retired_in_order": fids == list(range(n)), "retired": len(fids),
         "tracked_timed": tracked_timed, "tracked_total": sum(r[2] is not None for r in retired),
-        "keyframes": slam.map.n_keyframes(), "map_points": slam.map.n_points(),
+        "keyframes": m.n_keyframes(), "map_points": m.n_points(),
+        "keyframes_all_maps": m.n_keyframes(all_maps=True),
+        "map_points_all_maps": m.n_points(all_maps=True),
+        "maps_created": m.n_maps, "maps_alive": len(m.map_ids()),
         "keyframes_created_after_init": kf_log["created"],
         "keyframe_decisions_backlogged": kf_log["decisions_backlogged"],
         "ate_m": ate, "ate_scale": scale, "ate_frames": len(traj),
         "ate_first_half_m": ate_half, "ate_err_by_tenth_m": err_by_tenth,
         "ate_scale_by_quarter": scale_by_quarter,
+        "largest_map_kf_ate_m": lm_ate, "largest_map_kf_scale": lm_scale,
+        "largest_map_keyframes": lm_kfs,
+        "closer": {"keyframes": len(closer_ms), "queries": c.n_queries,
+                   "verifications": c.n_verifications, "loops_closed": c.n_loops_closed,
+                   "merges": c.n_merges, "gba_runs": c.n_gba_runs, "loops": c.loops,
+                   "ms_per_keyframe_mean": float(np.mean(closer_ms)) if closer_ms else 0.0,
+                   "ms_per_keyframe_max": float(np.max(closer_ms)) if closer_ms else 0.0,
+                   "stages": closer_stages,
+                   # each verified pair by frame id, with the counts each gate saw
+                   "verify_log": c.verify_log},
+        "reloc_attempts": slam.reloc_attempts, "reloc_successes": slam.reloc_successes,
         "chunk_stepped_frames": stepped, "slow_path_frames": n - stepped,
         "launches": launches, "launches_warm_up": warm,
         "launches_per_chunk_stepped_frame": {k_: v / max(stepped, 1) for k_, v in launches.items()},
+        "launches_by_stage": loop_launches,
         "plain_calls": plain_calls, "mapper_errors": am.errors if am is not None else [],
         "native_covis": native.get_lib() is not None,
         "frontend_stages": fe_stats, "mapper_stages": map_stats,
@@ -879,19 +1001,63 @@ def phase_system(dev, async_mapping=True, start=0):
     failures = []
     if fids != list(range(n)):
         failures.append(f"frames not retired in order: {len(fids)} of {n}")
-    if tracked_timed != n_timed:
-        failures.append(f"{n_timed - tracked_timed} timed frames not tracked")
-    if not ate < ATE_GATE_M:
-        failures.append(f"ATE {ate} m >= {ATE_GATE_M}")
+    if any(plain_calls.values()):
+        failures.append(f"plain versions called on the card: {plain_calls}")
+    return result, failures
+
+
+def phase_system(dev, async_mapping=True, start=0):
+    """bench.py's headline run through the user's entry point, loop closing
+    on (for scripts/system_repeat.py's comparisons: async_mapping=False runs
+    the mapper and closer in the tracker's thread, start > 0 enters the orbit
+    at that frame)."""
+    result, failures = _main_path(dev, "system", async_mapping, start)
+    n_timed, stepped, launches = (result["timed_frames"], result["chunk_stepped_frames"],
+                                  result["launches"])
+    c = result["closer"]
+    if (async_mapping and start == 0 and c["loops_closed"] + c["merges"] == 0
+            and result["reloc_attempts"] == 0):
+        got = {k_: result[k_] for k_ in SYSTEM_RUN_I}
+        if got != SYSTEM_RUN_I:
+            failures.append(f"a closer that did nothing changed the map: {got} != {SYSTEM_RUN_I}")
+    if result["tracked_timed"] != n_timed:
+        failures.append(f"{n_timed - result['tracked_timed']} timed frames not tracked")
+    if not result["ate_m"] < ATE_GATE_M:
+        failures.append(f"ATE {result['ate_m']} m >= {ATE_GATE_M}")
     if launches["hamming_matrix"] == 0:
         failures.append("the matrix entry never launched on the main path")
     if launches["mutual_best_match"] < 2 * stepped:
         failures.append(f"the fused entry launched fewer than 2 times per chunk-stepped frame: "
                         f"{launches['mutual_best_match']} for {stepped}")
-    if any(plain_calls.values()):
-        failures.append(f"plain versions called on the card: {plain_calls}")
     if failures:
         raise SystemExit("system failed: " + "; ".join(failures))
+    return result
+
+
+def phase_loop(dev, async_mapping=True, start=0):
+    """bench.py's ring scene (run_hard_scene) through the user's entry point:
+    relocalization, new maps and merges, loop detection, Sim3 verification,
+    the essential graph and global BA run here when the scene calls for them.
+    Gates beside the common ones: the fused entry launched by the closer or
+    relocalization; tracked timed frames and ATE no worse than the JAX
+    reference's on the same frames (REF_LOOP); loops closed + merges >= 1
+    only when the reference closed one."""
+    result, failures = _main_path(dev, "loop", async_mapping, start)
+    if start == 0:
+        by_stage = result["launches_by_stage"]
+        if by_stage["closer"]["mutual_best_match"] + by_stage["relocalization"]["mutual_best_match"] == 0:
+            failures.append("the fused entry was launched by neither the closer nor relocalization")
+        if result["tracked_timed"] < REF_LOOP["tracked_timed"]:
+            failures.append(f"tracked timed frames {result['tracked_timed']} < the reference's "
+                            f"{REF_LOOP['tracked_timed']}")
+        if not result["ate_m"] <= REF_LOOP["ate_gate_m"]:
+            failures.append(f"ATE {result['ate_m']} m > {REF_LOOP['ate_gate_m']} (the reference's "
+                            f"worst on these frames)")
+        closed = result["closer"]["loops_closed"] + result["closer"]["merges"]
+        if REF_LOOP["loops_closed"] + REF_LOOP["merges"] >= 1 and closed < 1:
+            failures.append("no loop closed and no map merged")
+    if failures:
+        raise SystemExit("loop failed: " + "; ".join(failures))
     return result
 
 
@@ -909,6 +1075,7 @@ def main():
     slice_result, ctx = phase_slice(dev)
     phase_breakdown(dev, ctx)
     system = phase_system(dev)
+    loop = phase_loop(dev)
     source = "orb_slam3_modified_tpu_torch/csrc/hamming.cu"
     replaces = "orb_slam3_modified_tpu/ops/pallas_kernels.py:31"
     hot_h, hot_m = hamming[(4096, 1024)], match[(4096, 1024, True)]
@@ -921,7 +1088,10 @@ def main():
             # captures and profiled calls
             "launches": system["launches"]["hamming_matrix"], "on_main_path": True,
             "launches_by_path": {"slice": slice_result["launches"]["hamming_matrix"],
-                                 "system": system["launches"]["hamming_matrix"]},
+                                 "system": system["launches"]["hamming_matrix"],
+                                 "loop": loop["launches"]["hamming_matrix"]},
+            "loop_by_stage": {stage: v["hamming_matrix"]
+                              for stage, v in loop["launches_by_stage"].items()},
             "kernel_phase_calls": kernel_launches["hamming_matrix"],
             "max_abs_err": max(r["max_abs_err"] for r in hamming.values()),
             "ms": hot_h["kernel_ms"], "plain_ms": hot_h["plain_ms"],
@@ -932,7 +1102,10 @@ def main():
             "name": "mutual_best_match", "route": "cuda", "source": source, "replaces": replaces,
             "launches": system["launches"]["mutual_best_match"], "on_main_path": True,
             "launches_by_path": {"slice": slice_result["launches"]["mutual_best_match"],
-                                 "system": system["launches"]["mutual_best_match"]},
+                                 "system": system["launches"]["mutual_best_match"],
+                                 "loop": loop["launches"]["mutual_best_match"]},
+            "loop_by_stage": {stage: v["mutual_best_match"]
+                              for stage, v in loop["launches_by_stage"].items()},
             "kernel_phase_calls": kernel_launches["mutual_best_match"],
             "max_abs_err": max(r["max_abs_err"] for r in match.values()),
             "ms": hot_m["kernel_ms"], "plain_ms": hot_m["plain_ms"],

@@ -50,3 +50,20 @@ def associate_by_timestamp(ts_a, ts_b, max_dt=0.02):
             pairs.append((i, j))
             used_b.add(j)
     return pairs
+
+
+
+def largest_map_ate(slam_map, gt_centres: dict):
+    """Scale-aligned ATE of the keyframes of the map that holds the most
+    keyframes, against the true camera centres at their frame ids.
+    gt_centres: {frame id: (3,) centre}. Returns (rmse, scale, n_keyframes,
+    map id); reads only the numpy map."""
+    m = slam_map
+    kfs = m.keyframe_indices(all_maps=True)
+    ids, counts = np.unique(m.kf_map[kfs], return_counts=True)
+    mid = int(ids[np.argmax(counts)])
+    kfs = kfs[m.kf_map[kfs] == mid]
+    est = np.stack([-m.kf_R[k].T @ m.kf_t[k] for k in kfs])
+    gt = np.stack([gt_centres[int(m.kf_frame_id[k])] for k in kfs])
+    rmse, scale = ate_rmse(est.astype(np.float64), gt)
+    return rmse, scale, len(kfs), mid

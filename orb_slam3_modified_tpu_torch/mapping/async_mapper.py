@@ -17,6 +17,12 @@ keyframe over at once and
 reads the map whenever its lock is free, so what the tracker saw depended
 on the threads' timing; here it depends only on the frames.
 
+post_fn(k), when set, runs right after keyframe k's local mapping, on the
+worker and under the map lock: the loop closer (loop/loop_closer.py), in the
+reference's pipeline order LocalMapping -> LoopClosing
+(src/LocalMapping.cc:255 region). It is part of the batch, so the tracker's
+wait_drained() covers it, global BA included.
+
 One map lock serializes map mutation (worker) against the tracker's host
 reads and writes (Map::mMutexMapUpdate). On a CUDA device the worker issues
 its device work on a stream of its own, so it never queues behind the
@@ -36,8 +42,9 @@ from .local_mapper import LocalMapper
 
 
 class AsyncLocalMapper:
-    def __init__(self, mapper: LocalMapper):
+    def __init__(self, mapper: LocalMapper, post_fn=None):
         self.mapper = mapper
+        self.post_fn = post_fn
         self.lock = threading.RLock()
         mapper.lock = self.lock  # fine-grained phase locking inside
         self.stream = None
@@ -87,6 +94,9 @@ class AsyncLocalMapper:
                         if not m.kf_valid[k] or int(m.kf_frame_id[k]) != fid:
                             continue  # slot culled (or culled and reused) since the hand-off
                         self.mapper.on_keyframe(k)
+                        if self.post_fn is not None:
+                            with self.lock:
+                                self.post_fn(k)
                         self.processed += 1
                 except Exception as e:  # surfaced by wait_drained(); the thread lives on
                     self.errors.append((batch, repr(e)))

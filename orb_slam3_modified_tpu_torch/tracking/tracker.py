@@ -16,9 +16,10 @@ come back through one readback each (utils/fetch.py). Poses between frames
 are numpy (SE3np).
 
 States mirror eTrackingState: NOT_INITIALIZED -> OK -> RECENTLY_LOST -> LOST,
-with the map reset one level up (system/slam_system.py). Stereo / RGB-D
-depth and the IMU are later slices (ROADMAP items 9-10); relocalization
-comes with loop closing (item 8).
+with the map reset one level up (system/slam_system.py). A lost frame tries
+relocalization through the `relocalize_fn` hook (loop/relocalization.py,
+wired by the system when loop closing is on). Stereo / RGB-D depth and the
+IMU are later slices (ROADMAP items 9-10).
 """
 from __future__ import annotations
 
@@ -149,6 +150,10 @@ class Tracker:
         # () -> bool: local mapper backlogged (NeedNewKeyFrame's
         # bLocalMappingIdle, src/Tracking.cc:3099)
         self.mapper_busy_fn = None
+        # (feats, frame_id) -> (T_cw SE3np, obs_mp (F,)) | None: relocalization
+        # against the keyframe database (Tracking::Relocalization,
+        # src/Tracking.cc:3612, from the RECENTLY_LOST branch)
+        self.relocalize_fn = None
         self.only_tracking = False  # localization mode (mbOnlyTracking)
         self.vo_mode = False  # mbVO analog
         self._dev_feats = None
@@ -370,6 +375,12 @@ class Tracker:
         if not ok_track:
             # --- TrackReferenceKeyFrame: brute match to the ref KF's points
             T_cur, obs_mp, ok_track = self._track_reference_kf(feats, T_pred)
+        if not ok_track and self.relocalize_fn is not None:
+            rel = self.relocalize_fn(feats, fid)
+            if rel is not None:
+                T_cur, obs_mp = rel
+                ok_track = True
+                self.velocity = None
         if not ok_track and self.only_tracking:
             # mbVO: frame-to-frame odometry on depth points (none in mono)
             T_vo, ok_vo = self._track_vo(feats, T_pred)

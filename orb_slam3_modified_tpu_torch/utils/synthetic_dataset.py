@@ -1,6 +1,6 @@
 """Rendered synthetic frames: a textured plane under a known trajectory.
 
-Numpy port of camera_rays and render_textured_scene from
+Numpy port of camera_rays, render_textured_scene and orbit_state from
 orb_slam3_modified_tpu/utils/synthetic_dataset.py.
 """
 from __future__ import annotations
@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from ..cameras import unproject, unproject_np
+from ..lie.se3 import SE3
 from ..tracking.fused import MapCache
 
 
@@ -103,3 +104,53 @@ def render_sequence(cam, T_cw, texture, plane_z: float = 2.0, plane_half: float 
         img = render_textured_scene(T, cam, texture, plane_z, plane_half, rays)
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
     return np.stack(frames)
+
+
+def orbit_state(t: float, period: float, radius: float, sweep: float,
+                height: float = 0.4, ring: bool = False, ring_z: float = -4.0):
+    """Analytic camera state at time t, looking at the origin (plane z = +2
+    beyond it).
+
+    - arc (default): the camera on an arc in the x-z plane (as
+      utils/synthetic.py::orbit_trajectory);
+    - ring: the camera on a horizontal circle at z = ring_z, bobbing
+      vertically, so the plane stays at a near-constant distance over a full
+      revolution: a loop-closure sequence.
+
+    Returns (R_cw (3, 3), p_w (3,), v_w (3,), a_w (3,)): camera-from-world
+    rotation, camera centre, velocity and acceleration (world frame)."""
+    a = sweep * t / period
+    da = sweep / period
+    sa, ca = np.sin(a), np.cos(a)
+    if ring:
+        s3, c3 = np.sin(3 * a), np.cos(3 * a)
+        p = np.array([radius * sa, radius * ca, ring_z + height * (1 - c3)])
+        v = np.array([radius * ca, -radius * sa, 3 * height * s3]) * da
+        acc = np.array([-radius * sa, -radius * ca, 9 * height * c3]) * da**2
+    else:
+        p = np.array([radius * sa, height * np.sin(3 * a), -radius * ca])
+        v = np.array([radius * ca, 3 * height * np.cos(3 * a), radius * sa]) * da
+        acc = np.array([-radius * sa, -9 * height * np.sin(3 * a), radius * ca]) * da**2
+    fwd = -p / np.linalg.norm(p)
+    up = np.array([0.0, -1.0, 0.0])
+    right = np.cross(up, fwd)
+    right /= np.linalg.norm(right)
+    up2 = np.cross(fwd, right)
+    R_wc = np.stack([right, up2, fwd], axis=1)
+    return R_wc.T, p, v, acc
+
+
+def ring_trajectory(n_frames: int, fps: float = 20.0, radius: float = 4.0, height: float = 0.4,
+                    revolutions: float = 1.0):
+    """bench.py's ring scene (render_ring_sequence): `revolutions` full
+    revolutions (bench.py: one) of orbit_state(ring=True) in n_frames frames
+    at fps; SE3 (F,) of float32 CPU tensors."""
+    period = n_frames / fps
+    Rs, ts = [], []
+    for i in range(n_frames):
+        R_cw, p, _, _ = orbit_state(i / fps, period, radius, 2 * np.pi * revolutions,
+                                    height=height, ring=True)
+        Rs.append(R_cw)
+        ts.append(-R_cw @ p)
+    return SE3(torch.from_numpy(np.stack(Rs).astype(np.float32)),
+               torch.from_numpy(np.stack(ts).astype(np.float32)))

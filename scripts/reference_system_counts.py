@@ -1,16 +1,24 @@
-"""The JAX reference on the frames of chip_smoke.py's `system` phase.
+"""The JAX reference on the frames of chip_smoke.py's `system` and `loop` phases.
 
-Renders bench.py's headline scene exactly as chip_smoke.py does (the port's
-utils/synthetic_dataset.py: seeded texture upsampled by torch, the 400-frame
-quarter orbit, 752x480 uint8), then drives the JAX package's
-SlamSystem(..., use_loop_closing=False).make_chunked_frontend(chunk=16,
-lag=1) over them: the first 64 frames as warm-up, the async mapper drained,
-then the rest. Prints one JSON line with the tracked / timed frames,
-keyframes, map points and the scale-aligned ATE, for comparison with the
-port's counts on the card. No time is printed: this runs on the CPU.
+Renders the scene exactly as chip_smoke.py does (the port's
+utils/synthetic_dataset.py: seeded texture upsampled by torch, 752x480
+uint8), then drives the JAX package's SlamSystem(..., use_loop_closing=True)
+.make_chunked_frontend(chunk, lag=1) over the frames: the first 64 as
+warm-up, the async mapper drained, then the rest. Scenes:
 
-    JAX_PLATFORMS=cpu python scripts/reference_system_counts.py [n_frames]
+- system: bench.py's headline scene, the 400-frame quarter orbit, chunk 16;
+- loop: bench.py's ring scene (run_hard_scene), one full revolution in 400
+  frames over a 2048^2 texture from a 128^2 draw, chunk 8.
+
+Prints one JSON line per scene with the tracked / timed frames, keyframes,
+map points, maps, the closer's counts (loops, merges, global BAs),
+relocalization attempts and successes, and the scale-aligned ATE of the
+whole trajectory and of the keyframes of the largest map, for comparison with the port's
+counts on the card. No time is printed: this runs on the CPU.
+
+    JAX_PLATFORMS=cpu python scripts/reference_system_counts.py [system|loop ...] [--frames N]
 """
+import argparse
 import json
 import sys
 
@@ -23,26 +31,61 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 N_WARM = 64
+SCENES = {"system": 16, "loop": 8}  # scene -> chunk
 
 
-def main(n_frames=400):
+def scene_frames(scene, n_frames=400):
+    """(frames (F, 480, 752) uint8, SE3 of the true poses) as chip_smoke.py renders them."""
+    from orb_slam3_modified_tpu_torch.cameras import Camera as TCamera
+    from orb_slam3_modified_tpu_torch.utils.synthetic import orbit_trajectory
+    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import (
+        make_texture, render_sequence, ring_trajectory,
+    )
+
+    tcam = TCamera.pinhole(458.654, 457.296, 367.215, 248.375, width=752, height=480,
+                           device="cpu")
+    if scene == "loop":
+        T_all = ring_trajectory(n_frames)
+        tex = make_texture(0, 128, 2048)
+    else:
+        T_all = orbit_trajectory(n_frames, radius=4.0, sweep=np.pi / 2)
+        tex = make_texture(0, 96, 1024)
+    with np.errstate(invalid="ignore"):  # rays parallel to the plane
+        frames = render_sequence(tcam, T_all, tex, plane_z=2.0, plane_half=10.0)
+    return frames, T_all
+
+
+def run(scene, n_frames=400):
     import orb_slam3_modified_tpu  # noqa: F401  (precision config)
     from orb_slam3_modified_tpu.cameras import Camera
     from orb_slam3_modified_tpu.eval.ate import ate_rmse
     from orb_slam3_modified_tpu.features.extractor import ExtractorConfig
     from orb_slam3_modified_tpu.system.slam_system import SlamSystem, SystemConfig
-    from orb_slam3_modified_tpu_torch.cameras import Camera as TCamera
-    from orb_slam3_modified_tpu_torch.utils.synthetic import orbit_trajectory
-    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import make_texture, render_sequence
+    from orb_slam3_modified_tpu_torch.eval.ate import largest_map_ate
 
-    intr = (458.654, 457.296, 367.215, 248.375)
-    tcam = TCamera.pinhole(*intr, width=752, height=480, device="cpu")
-    T_all = orbit_trajectory(400, radius=4.0, sweep=np.pi / 2)
-    frames = render_sequence(tcam, T_all, make_texture(0, 96, 1024), plane_z=2.0, plane_half=10.0)
-    slam = SlamSystem(SystemConfig(cam=Camera.pinhole(*intr, width=752, height=480),
+    frames, T_all = scene_frames(scene, n_frames)
+    slam = SlamSystem(SystemConfig(cam=Camera.pinhole(458.654, 457.296, 367.215, 248.375,
+                                                      width=752, height=480),
                                    feat_cap=1024, extractor=ExtractorConfig(n_features=1024),
-                                   use_loop_closing=False))
-    fe = slam.make_chunked_frontend(chunk=16, lag=1)
+                                   use_loop_closing=True))
+    reloc = {"attempts": 0, "successes": 0}
+    inner = slam.tracker.relocalize_fn
+
+    def counted(feats, fid):
+        reloc["attempts"] += 1
+        res = inner(feats, fid)
+        reloc["successes"] += res is not None
+        return res
+
+    slam.tracker.relocalize_fn = counted
+    closer_calls = {"queries": 0, "verifications": 0}
+    for name, key in (("_detect", "queries"), ("_verify", "verifications")):
+        def wrapped(*a, _f=getattr(slam.closer, name), _k=key):
+            closer_calls[_k] += 1
+            return _f(*a)
+
+        setattr(slam.closer, name, wrapped)
+    fe = slam.make_chunked_frontend(chunk=SCENES[scene], lag=1)
     retired = []
     for i in range(n_frames):
         retired += fe.track_image(frames[i], ts=i / 20.0)
@@ -50,20 +93,41 @@ def main(n_frames=400):
             slam.async_mapper.flush()
     retired += fe.flush()
     slam.shutdown()
+    R, t = T_all.R.numpy(), T_all.t.numpy()
+    gt = {f: -R[f].T @ t[f] for f in range(n_frames)}
     traj = slam.tracker.absolute_trajectory()
     est = np.array([np.linalg.inv(T)[:3, 3] for _, _, T in traj])
-    R, t = T_all.R.numpy(), T_all.t.numpy()
-    gt = np.array([-R[fid].T @ t[fid] for _, fid, _ in traj])
-    rmse, scale = ate_rmse(est, gt)
+    rmse, scale = ate_rmse(est, np.array([gt[fid] for _, fid, _ in traj]))
+    lm_rmse, lm_scale, lm_kfs, _ = largest_map_ate(slam.map, gt)
+    c = slam.closer
+    m = slam.map
     print(json.dumps({
-        "package": "orb_slam3_modified_tpu (JAX reference, CPU)", "frames": n_frames,
+        "package": "orb_slam3_modified_tpu (JAX reference, CPU)", "scene": scene,
+        "frames": n_frames, "chunk": SCENES[scene],
         "retired_in_order": [r[0] for r in retired] == list(range(n_frames)),
         "tracked": sum(r[2] is not None for r in retired),
         "tracked_timed": sum(r[2] is not None for r in retired if r[0] >= N_WARM),
-        "timed": n_frames - N_WARM, "keyframes": slam.map.n_keyframes(),
-        "map_points": slam.map.n_points(), "ate_m": rmse, "ate_scale": scale,
+        "timed": n_frames - N_WARM, "keyframes": m.n_keyframes(),
+        "keyframes_all_maps": m.n_keyframes(all_maps=True), "map_points": m.n_points(),
+        "maps_created": m.n_maps, "maps_alive": len(m.map_ids()),
+        "closer_queries": closer_calls["queries"],
+        "closer_verifications": closer_calls["verifications"],
+        "loops_closed": c.n_loops_closed, "merges": c.n_merges, "gba_runs": c.n_gba_runs,
+        "gba_aborted": c.n_gba_aborted, "reloc_attempts": reloc["attempts"],
+        "reloc_successes": reloc["successes"], "ate_m": rmse, "ate_scale": scale,
+        "largest_map_kf_ate_m": lm_rmse, "largest_map_kf_scale": lm_scale,
+        "largest_map_keyframes": lm_kfs,
     }), flush=True)
 
 
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("scenes", nargs="*", default=list(SCENES), choices=list(SCENES))
+    ap.add_argument("--frames", type=int, default=400)
+    a = ap.parse_args()
+    for scene in a.scenes:
+        run(scene, a.frames)
+
+
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:]))
+    main()

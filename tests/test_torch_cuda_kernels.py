@@ -1,6 +1,10 @@
 """Card-only tests of the port's hand-written CUDA kernels (marker `cuda`):
 the Hamming matrix (csrc/hamming.cu entry 1) and the fused windowed
-mutual-best match (entry 2), each exact against its plain torch version.
+mutual-best match (entry 2), each exact against its plain torch version,
+and the paths that launch them on the card: the chunk step, the host
+searches, local BA, and loop closing (the closer's verification,
+relocalization, the RANSACs, the pose graph, the global BA, and a
+relocalize / merge / close course through SlamSystem).
 
 A CUDA kernel has no CPU mode, so each test checks inside its body for a
 card and skips without one. The machine with the card has no JAX, so this
@@ -336,3 +340,269 @@ def test_local_ba_on_the_card_repeats_bit_for_bit():
     for x, y in zip((a.T_cw.R, a.T_cw.t, a.points, a.obs_inlier, a.chi2),
                     (b.T_cw.R, b.T_cw.t, b.points, b.obs_inlier, b.chi2)):
         assert torch.equal(x, y)
+
+
+# ---- loop closing and relocalization on the card
+
+
+def _loop_scene(dev):
+    """A small numpy map of the port's SyntheticFeatureWorld (ring layout):
+    six keyframes along an orbit, each observing its visible world points
+    (descriptors with bit flips, pixel noise), the points at their true
+    positions; a loop closer and a keyframe database over it on `dev`, and
+    one more frame near keyframe 2. The same seed gives the same scene on
+    every device."""
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.lie.se3 import SE3np
+    from orb_slam3_modified_tpu_torch.loop.loop_closer import LoopCloser, LoopCloserConfig
+    from orb_slam3_modified_tpu_torch.slam_map.map_state import MapState
+    from orb_slam3_modified_tpu_torch.tracking.tracker import TrackerConfig
+    from orb_slam3_modified_tpu_torch.bow.vocabulary import build_vocabulary
+    from orb_slam3_modified_tpu_torch.utils.synthetic import orbit_trajectory
+    from orb_slam3_modified_tpu_torch.utils.synthetic_features import SyntheticFeatureWorld
+
+    cam = Camera.pinhole(458.654, 457.296, 367.215, 248.375, width=752, height=480, device="cpu")
+    world = SyntheticFeatureWorld(n_points=12000, spread=10.0, seed=7, feat_cap=1024, noise_px=0.5,
+                                  layout="ring")
+    T = orbit_trajectory(90, radius=4.0, sweep=2.05 * np.pi)
+    m = MapState.create(max_kf=16, max_mp=16384, feat_cap=1024)
+    mp_of = {}
+    for i in range(6):
+        R, t = T.R[2 * i].numpy(), T.t[2 * i].numpy()
+        f, idx = world.observe(cam, SE3np(R, t), max_feats=700)
+        k = m.alloc_keyframe()
+        m.kf_R[k], m.kf_t[k], m.kf_frame_id[k], m.kf_parent[k] = R, t, 2 * i, k - 1
+        m.kf_uv[k], m.kf_desc[k], m.kf_level[k], m.kf_feat_valid[k] = f.uv, f.desc, f.level, f.valid
+        for slot, p in enumerate(idx):
+            if p not in mp_of:
+                mp = int(m.alloc_points(1)[0])
+                mp_of[p] = mp
+                m.mp_pos[mp] = world.points[p]
+                m.mp_desc[mp] = world.desc[p]
+                m.mp_first_kf[mp] = k
+            m.kf_obs[k, slot] = mp_of[p]
+    closer = LoopCloser(LoopCloserConfig(), TrackerConfig(cam=cam),
+                        build_vocabulary(world.desc[:4000], k=8, depth=3, seed=1), m, device=dev)
+    for k in m.keyframe_indices():
+        closer.kfdb.add(int(k), closer._words_of(int(k)))
+    frame, _ = world.observe(cam, SE3np(T.R[5].numpy(), T.t[5].numpy()), max_feats=700)
+    return m, closer, frame
+
+
+def _recorded_matches(stack, module):
+    """Patch module.mutual_best_match to record each call's (idx, ok) on the CPU."""
+    calls = []
+    fn = module.mutual_best_match
+
+    def wrapper(*a, **k):
+        out = fn(*a, **k)
+        calls.append(tuple(x.cpu() for x in out[:2]))
+        return out
+
+    stack.enter_context(mock.patch.object(module, "mutual_best_match", wrapper))
+    return calls
+
+
+@pytest.mark.cuda
+def test_closer_verify_and_relocalize_on_the_card_match_the_cpu_port():
+    """_verify (BoW candidate -> fused match at (F, F) -> Sim3 RANSAC ->
+    OptimizeSim3) and relocalize (query -> fused match -> PnP RANSAC ->
+    polish) on CUDA tensors: the same match indices as the CPU port bit for
+    bit, S and the pose within 1e-4, the same inliers and observations."""
+    import contextlib
+
+    from orb_slam3_modified_tpu_torch.loop import loop_closer, relocalization
+    from orb_slam3_modified_tpu_torch.tracking.tracker import inv_level_sigma2
+
+    dev = _card()
+    out = {}
+    for d in ("cpu", dev):
+        m, closer, frame = _loop_scene(d)
+        with contextlib.ExitStack() as stack:
+            calls = _recorded_matches(stack, loop_closer)
+            before = matcher.MATCH_KERNEL.launches
+            ver = closer._verify(0, 3)
+            rcalls = _recorded_matches(stack, relocalization)
+            rel = relocalization.relocalize(closer.cam, closer.kfdb, closer.voc, m, frame,
+                                            inv_level_sigma2(), 1234)
+            launched = matcher.MATCH_KERNEL.launches - before
+        out[str(d)] = (calls, ver, rcalls, rel, launched)
+    c_calls, c_ver, c_rcalls, c_rel, _ = out["cpu"]
+    g_calls, g_ver, g_rcalls, g_rel, g_launched = out[str(dev)]
+    assert g_launched == len(g_calls) + len(g_rcalls) >= 2  # the fused entry, every match
+    for a, b in zip(c_calls + c_rcalls, g_calls + g_rcalls, strict=True):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert c_ver is not None and g_ver is not None and c_ver[1] == g_ver[1]
+    for a, b in zip(c_ver[0], g_ver[0]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+    assert all(np.array_equal(a, b) for a, b in zip(c_ver[2], g_ver[2]))
+    assert c_rel is not None and g_rel is not None and np.array_equal(c_rel[1], g_rel[1])
+    np.testing.assert_allclose(g_rel[0].R, c_rel[0].R, atol=1e-4)
+    np.testing.assert_allclose(g_rel[0].t, c_rel[0].t, atol=1e-4)
+
+
+def _chain_problem(dev, n=12, drift=0.03, seed=0):
+    """tests/test_loop_components.py::TestPoseGraph's drifting chain with one
+    loop edge, built with the port's Sim3 on `dev`."""
+    from orb_slam3_modified_tpu_torch.lie import sim3
+    from orb_slam3_modified_tpu_torch.lie import so3
+    from orb_slam3_modified_tpu_torch.optim.pose_graph import PoseGraphProblem, make_relative
+
+    rng = np.random.default_rng(seed)
+    a = 2 * np.pi * np.arange(n) / n
+    R = so3.exp(torch.tensor(np.stack([0 * a, 0 * a, a], 1), dtype=torch.float32))
+    gt = sim3.Sim3(torch.ones(n), R, torch.tensor(np.stack([np.cos(a), np.sin(a), 0 * a], 1),
+                                                  dtype=torch.float32))
+    noise = sim3.exp(torch.tensor(np.concatenate([rng.normal(0, drift, (n, 6)),
+                                                  rng.normal(0, drift * 0.3, (n, 1))], 1),
+                                  dtype=torch.float32))
+    est = [sim3.Sim3(gt.s[0], gt.R[0], gt.t[0])]
+    for k in range(1, n):
+        rel = sim3.Sim3(gt.s[k], gt.R[k], gt.t[k]) @ sim3.Sim3(gt.s[k - 1], gt.R[k - 1], gt.t[k - 1]).inverse()
+        est.append((sim3.Sim3(noise.s[k], noise.R[k], noise.t[k]) @ rel) @ est[-1])
+    S = sim3.Sim3(*(torch.stack(x) for x in zip(*est)))
+    ei = torch.tensor(list(range(n - 1)) + [n - 1])
+    ej = torch.tensor(list(range(1, n)) + [0])
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[0] = True
+    prob = PoseGraphProblem(S, fixed, ei, ej, make_relative(gt, ei, ej), torch.ones(n), torch.ones(n, dtype=torch.bool))
+    return type(prob)(*(x.to(dev) if isinstance(x, torch.Tensor) else sim3.Sim3(*(y.to(dev) for y in x))
+                        for x in prob))
+
+
+@pytest.mark.cuda
+def test_ransacs_and_pose_graph_on_the_card_match_the_cpu_port():
+    """Sim3 RANSAC and PnP RANSAC draw their minimal sets on a CPU generator
+    and upload them, so the card solves the same hypotheses as the CPU port:
+    the same inliers, S and the pose within 1e-4; the pose graph within 1e-4."""
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.loop.relocalization import pnp_ransac
+    from orb_slam3_modified_tpu_torch.loop.sim3_solver import solve_sim3_ransac
+    from orb_slam3_modified_tpu_torch.optim.pose_graph import optimize_pose_graph
+
+    dev = _card()
+    rng = np.random.default_rng(5)
+    p2 = rng.uniform(-2, 2, (512, 3)).astype(np.float32)
+    c, s_ = np.cos(0.3), np.sin(0.3)
+    R = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]], np.float32)
+    p1 = (0.8 * p2 @ R.T + [1.0, 0.5, -0.7]).astype(np.float32)
+    p1[:150] += rng.uniform(1, 3, (150, 3)).astype(np.float32)
+    valid = np.arange(512) < 400
+    pw = np.concatenate([rng.uniform(-3, 3, (512, 2)), rng.uniform(4, 10, (512, 1))], 1).astype(np.float32)
+    pc = pw @ R.T + [0.3, -0.1, 0.2]
+    uv = np.stack([458.654 * pc[:, 0] / pc[:, 2] + 367.215, 457.296 * pc[:, 1] / pc[:, 2] + 248.375], 1)
+    uv = (uv + rng.normal(0, 0.5, uv.shape)).astype(np.float32)
+    uv[:100] += 50.0
+    out = {}
+    for d in ("cpu", dev):
+        t = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
+        s3 = solve_sim3_ransac(t(p1), t(p2), t(valid), 7)
+        cam = Camera.pinhole(458.654, 457.296, 367.215, 248.375, 752, 480, device=d)
+        pnp = pnp_ransac(cam, t(pw), t(uv), t(valid), 9)
+        pg = optimize_pose_graph(_chain_problem(d), False, 25)
+        out[str(d)] = [x.cpu() for x in (s3.inliers, *s3.S_12, pnp.inliers, pnp.T_cw.R, pnp.T_cw.t, *pg)]
+    cpu, card = out["cpu"], out[str(dev)]
+    assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[4], card[4])
+    for a, b in zip(cpu, card):
+        torch.testing.assert_close(b.float(), a.float(), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_global_ba_in_a_grown_bucket_repeats_bit_for_bit():
+    """The closer's global BA schedule (a Huber round, outliers reclassified,
+    a plain round) over a problem past the local buckets (40 keyframes: the
+    bucket grows to 64): two solves agree to the bit."""
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.mapping.local_mapper import _pad_problem
+    from orb_slam3_modified_tpu_torch.optim.ba import bundle_adjust, to_device
+
+    dev = _card()
+    base = _pad_problem(_ba_problem(np.random.default_rng(2), n_kf=40, n_pts=600), dev)
+    assert base.T_cw.t.shape[0] == 64
+    cam = Camera.pinhole(458.0, 457.0, 367.0, 248.0, 752, 480, device=dev)
+    runs = []
+    for _ in range(2):
+        prob = to_device(base, dev)
+        for round_idx in range(2):
+            res = bundle_adjust(prob, cam, 1, 5, round_idx == 0)
+            prob = prob._replace(T_cw=res.T_cw, points=res.points,
+                                 obs_valid=prob.obs_valid & res.obs_inlier)
+        runs.append((res.T_cw.R, res.T_cw.t, res.points, res.obs_inlier, res.chi2))
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
+def _ring_pose(a):
+    """tests/test_merge.py's ring pose at angle a: (R_cw, t_cw, centre)."""
+    c = np.array([4 * np.sin(a), 0.4 * np.sin(3 * a), -4 * np.cos(a)])
+    fwd = -c / np.linalg.norm(c)
+    right = np.cross([0.0, -1.0, 0.0], fwd)
+    right /= np.linalg.norm(right)
+    R_cw = np.stack([right, np.cross(fwd, right), fwd], axis=1).T
+    return R_cw.astype(np.float32), (-R_cw @ c).astype(np.float32), c
+
+
+@pytest.mark.cuda
+def test_system_relocalizes_merges_and_closes_on_the_card():
+    """tests/test_merge.py::TestCrossMapMerge's course through the port's
+    SlamSystem.track_features on the card: an arc (map 0), an 8-frame
+    blackout (relocalization tried, then LOST: map 1), the arc again. The
+    closer must merge map 1 back, close the loop, run its global BA, with
+    every match on the fused entry, and keep test_merge's gates (one map,
+    keyframe ATE < 0.5 m). Prints the closer's stage times (-s)."""
+    import json
+
+    from orb_slam3_modified_tpu_torch.bow.vocabulary import build_vocabulary
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.eval.ate import ate_rmse
+    from orb_slam3_modified_tpu_torch.features.extractor import Features
+    from orb_slam3_modified_tpu_torch.lie.se3 import SE3np
+    from orb_slam3_modified_tpu_torch.system.slam_system import SlamSystem, SystemConfig
+    from orb_slam3_modified_tpu_torch.utils.synthetic_features import SyntheticFeatureWorld
+
+    dev = _card()
+    cam = Camera.pinhole(458.654, 457.296, 367.215, 248.375, width=752, height=480, device=dev)
+    world = SyntheticFeatureWorld(n_points=12000, spread=10.0, seed=7, feat_cap=768, noise_px=0.5,
+                                  layout="ring")
+    slam = SlamSystem(SystemConfig(cam=cam, feat_cap=768, max_kf=256, max_mp=65536,
+                                   min_kfs_for_new_map=6, device=str(dev),
+                                   vocabulary=build_vocabulary(world.desc[:4000], k=8, depth=3, seed=1)))
+    # test_merge's tuning: a short lost budget, softer culling, a lower gate
+    slam.tracker.cfg.recently_lost_budget = 3
+    slam.mapper.cfg.kf_cull_redundancy = 0.97
+    slam.closer.cfg.min_map_kfs = 5
+    empty = Features(np.zeros((768, 2), np.float32), np.zeros((768, 8), np.uint32),
+                     np.zeros(768, np.float32), np.zeros(768, np.int32), np.zeros(768, np.float32),
+                     np.zeros(768, bool))
+    gt, i = {}, 0
+    launches0 = matcher.MATCH_KERNEL.launches
+    for angles in (1.05 * np.pi * np.arange(70) / 70, None, 0.1 * np.pi + 0.9 * np.pi * np.arange(70) / 70):
+        if angles is None:  # the blackout
+            for _ in range(8):
+                slam.track_features(empty, ts=i * 0.05)
+                i += 1
+            assert slam.map.n_maps == 2
+            continue
+        for a in angles:
+            R, t, c = _ring_pose(a)
+            feats, _ = world.observe(cam, SE3np(R, t), max_feats=600)
+            slam.track_features(feats, ts=i * 0.05)
+            gt[i] = c
+            i += 1
+    m, closer = slam.map, slam.closer
+    live = m.keyframe_indices(all_maps=True)
+    fids = m.kf_frame_id[live]
+    sel = np.array([f in gt for f in fids])
+    centres = np.stack([-m.kf_R[k].T @ m.kf_t[k] for k in live[sel]])
+    ate, _ = ate_rmse(centres, np.stack([gt[f] for f in fids[sel]]))
+    print(json.dumps({"card_merge_scene": {
+        "merges": closer.n_merges, "loops_closed": closer.n_loops_closed, "gba_runs": closer.n_gba_runs,
+        "loops": closer.loops, "reloc_attempts": slam.reloc_attempts,
+        "keyframes": len(live), "keyframe_ate_m": ate,
+        "fused_launches": matcher.MATCH_KERNEL.launches - launches0,
+        "closer_stages": closer.stats.summary()}}))
+    assert closer.n_merges >= 1 and closer.n_loops_closed >= 1 and closer.n_gba_runs >= 1
+    assert slam.reloc_attempts >= 1
+    assert matcher.MATCH_KERNEL.launches - launches0 >= closer.n_verifications
+    assert len(np.unique(m.kf_map[live])) == 1
+    assert ate < 0.5

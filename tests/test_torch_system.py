@@ -137,17 +137,25 @@ def test_anchor_falls_back_to_a_covisible_keyframe():
 
 
 def test_system_refuses_what_later_slices_bring():
-    """Loop closing and the other sensors raise instead of running without them."""
-    from orb_slam3_modified_tpu_torch.system.slam_system import STEREO, SlamSystem, SystemConfig
+    """The other sensors raise instead of running without them; loop closing,
+    ported since, is on by default and builds the closer and the
+    relocalization hook."""
+    from orb_slam3_modified_tpu_torch.system.slam_system import (
+        IMU_MONOCULAR, STEREO, SlamSystem, SystemConfig,
+    )
 
     cam = convert.camera(JCAM, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 8"):
-        SlamSystem(SystemConfig(cam=cam, device="cpu"))
     with pytest.raises(ValueError, match="ROADMAP item 9"):
-        SlamSystem(SystemConfig(cam=cam, sensor=STEREO, use_loop_closing=False, device="cpu"))
-    slam = SlamSystem(SystemConfig(cam=cam, use_loop_closing=False, device="cpu"))
+        SlamSystem(SystemConfig(cam=cam, sensor=STEREO, device="cpu"))
+    with pytest.raises(ValueError, match="ROADMAP item 10"):
+        SlamSystem(SystemConfig(cam=cam, sensor=IMU_MONOCULAR, device="cpu"))
+    slam = SlamSystem(SystemConfig(cam=cam, device="cpu"))
+    assert slam.closer is not None and slam.tracker.relocalize_fn is not None
+    assert SlamSystem(SystemConfig(cam=cam, use_loop_closing=False, device="cpu")).closer is None
     with pytest.raises(NotImplementedError):
         slam.make_chunked_frontend(stereo=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        slam.closer._global_vi_ba()
 
 
 def test_system_entry_point_defaults_to_cuda():
