@@ -62,11 +62,35 @@ before the last line:
              no worse than the JAX reference's on the same frames (REF_LOOP),
              and, if the reference closed a loop or merged there, the port
              did too;
+  stereo     the headline scene as a rectified pair (the right camera
+             displaced by configs/euroc_stereo.yaml's 0.110074 m baseline),
+             SlamSystem(sensor=STEREO, bf=baseline * fx, min_depth=0.3)
+             .make_chunked_frontend(chunk=16, lag=1, stereo=True), as the
+             system phase runs it (400 frames, 64 warm-up, async mapper, loop
+             closing on): a chunk's left and right images are one extraction
+             batch and each frame's left -> right match is one launch of the
+             matrix entry (ops/stereo_match.py). The system phase's numbers,
+             plus the stereo match's ms per chunk (CUDA events and host
+             time), its matrix launches, the close points spawned from depth,
+             and one frame's match on the card against the CPU's (exact).
+             Fails unless every frame retires in order, every timed frame is
+             tracked, the scale-aligned fit's |s - 1| < 0.15
+             (tests/test_chunked.py:126-127), the ATE is no worse than the JAX
+             reference's worst CPU run on the same frames (REF_STEREO), no
+             plain version is called, the fused entry launched at least twice
+             per chunk-stepped frame and the matrix entry at least once per
+             frame by the stereo match;
+  rgbd       the same orbit with the renderer's float32 metric depth maps,
+             SlamSystem(sensor=RGBD, bf (virtual), depth_scale=1,
+             th_far_points=0).make_chunked_frontend(..., rgbd=True): the depth
+             lookup (one gather per chunk) and uR = u - bf/z feed the same
+             stereo rows; the same numbers with depth_lookup ms per chunk, and
+             the same gates against REF_RGBD (no stereo match);
 then one line {"kernels": [...]} (each entry's `launches` counted on the
-main path, the system phase, with the slice's and the loop phase's counts
-beside it in `launches_by_path`, the closer's and relocalization's share of
-the loop phase's in `loop_by_stage`, and `kernel_phase_calls`) and, last,
-{"ok": true, "device": {...}}.
+main path, the system phase, with the slice's, the loop's, the stereo and
+the rgbd phases' counts beside it in `launches_by_path`, the closer's and
+relocalization's share of the loop phase's in `loop_by_stage`, and
+`kernel_phase_calls`) and, last, {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when torch sees no CUDA device.
 """
@@ -115,6 +139,22 @@ REF_LOOP = {"tracked_timed": 336, "loops_closed": 0, "merges": 0,
 # NVIDIA H100 80GB HBM3, PERF.md's run I): with a closer that neither closes,
 # merges nor relocalizes, the map must come out the same to the bit
 SYSTEM_RUN_I = {"ate_m": 0.13359771593053277, "keyframes": 23, "map_points": 2079}
+# the stereo and rgbd phases: the headline orbit with a rectified right image
+# (configs/euroc_stereo.yaml's Stereo.T_c1_c2 baseline) or a metric depth map
+BASELINE_M = 0.110074137800478
+MIN_DEPTH = 0.3
+N_DEPTH_FRAMES = {"stereo": 400, "rgbd": 400}
+SCALE_GATE = 0.15  # |s - 1| of the scale-aligned fit, tests/test_chunked.py:126-127
+# the JAX reference on the same frames (scripts/reference_system_counts.py
+# stereo / rgbd, CPU, async mapper, loop closing on; its runs differ with the
+# threads' timing): every timed frame tracked in every run; ate_gate_m is the
+# worst ATE of its runs
+REF_STEREO = {"runs": 3, "tracked_timed": 336, "keyframes": (27, 27), "map_points": (4113, 4210),
+              "ate_m": (0.10160958624582596, 0.16466816872393464),
+              "ate_gate_m": 0.16466816872393464}
+REF_RGBD = {"runs": 3, "tracked_timed": 336, "keyframes": (26, 26), "map_points": (3145, 3258),
+            "ate_m": (0.03798678544855518, 0.04510638321865001),
+            "ate_gate_m": 0.04510638321865001}
 
 
 def emit(obj):
@@ -776,6 +816,48 @@ def _ring(cam):
     return _RING["T"], _RING["frames"]
 
 
+def _headline_depth(cam, scene):
+    """The headline orbit's right images (stereo: the right camera displaced
+    by BASELINE_M along the left one's x) or metric depth maps (rgbd),
+    rendered once."""
+    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import (
+        make_texture, render_rgbd_sequence, render_stereo_sequence,
+    )
+
+    if scene not in _HEADLINE:
+        T_all, _ = _headline(cam)
+        tex = make_texture(SEED, 96, 1024)
+        with np.errstate(invalid="ignore"):  # rays parallel to the plane
+            if scene == "stereo":
+                _HEADLINE[scene] = render_stereo_sequence(cam, T_all, tex, BASELINE_M,
+                                                          plane_z=2.0, plane_half=10.0)[1]
+            else:
+                _HEADLINE[scene] = render_rgbd_sequence(cam, T_all, tex, plane_z=2.0,
+                                                        plane_half=10.0)[1]
+    return _HEADLINE[scene]
+
+
+def _count_stereo_matches(stack):
+    """Patch the stereo match's Hamming matrix to count its calls and the
+    matrix entry's launches they make."""
+    from orb_slam3_modified_tpu_torch.ops import stereo_match
+    from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
+
+    counts = {"calls": 0, "hamming_matrix": 0}
+    fn = stereo_match.hamming_matrix
+
+    def wrapper(*a, **k):
+        before = HAMMING_KERNEL.launches
+        try:
+            return fn(*a, **k)
+        finally:
+            counts["calls"] += 1
+            counts["hamming_matrix"] += HAMMING_KERNEL.launches - before
+
+    stack.enter_context(mock.patch.object(stereo_match, "hamming_matrix", wrapper))
+    return counts
+
+
 def _count_loop_matches(stack):
     """Patch the closer's and relocalization's matcher to count the launches
     of each entry that each of them makes."""
@@ -808,8 +890,9 @@ def _main_path(dev, scene, async_mapping=True, start=0):
     """The main path end to end through the user's entry point, as bench.py
     drives the reference: scene "system" is the headline run
     (bench.py:357-449, chunk 16), "loop" the ring scene (run_hard_scene,
-    bench.py:121-201, chunk 8); loop closing on in both. Returns (the
-    phase's result line, the gate failures common to both)."""
+    bench.py:121-201, chunk 8), "stereo" and "rgbd" the headline run with a
+    right image or a depth map per frame; loop closing on in all. Returns
+    (the phase's result line, the gate failures common to all)."""
     import contextlib
 
     from orb_slam3_modified_tpu_torch import native
@@ -818,7 +901,9 @@ def _main_path(dev, scene, async_mapping=True, start=0):
     from orb_slam3_modified_tpu_torch.features import matcher
     from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig
     from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
-    from orb_slam3_modified_tpu_torch.system.slam_system import SlamSystem, SystemConfig
+    from orb_slam3_modified_tpu_torch.system.slam_system import (
+        MONOCULAR, RGBD, STEREO, SlamSystem, SystemConfig,
+    )
 
     k = FRAME_W / 752
     cam = Camera.pinhole(458.654 * k, 457.296 * k, 367.215 * k, 248.375 * k,
@@ -829,13 +914,25 @@ def _main_path(dev, scene, async_mapping=True, start=0):
         chunk, n_full = LOOP_CHUNK, N_LOOP_FRAMES
     else:
         T_all, frames = _headline(cam)  # rendered once, in the slice's set-up
-        chunk, n_full = CHUNK, N_SYSTEM_FRAMES
+        chunk, n_full = CHUNK, N_DEPTH_FRAMES.get(scene, N_SYSTEM_FRAMES)
+    sensor = {"stereo": STEREO, "rgbd": RGBD}.get(scene, MONOCULAR)
+    # a frame's right image (stereo) or depth map (rgbd), as track_image's keyword
+    extra = _headline_depth(cam, scene)[start:] if sensor != MONOCULAR else None
+    extra_kw = {"stereo": "img_right", "rgbd": "depth_img"}.get(scene)
     frames = frames[start:]
     n = min(n_full, len(frames))
-    slam = SlamSystem(SystemConfig(cam=cam, feat_cap=N_FEATURES,
+    bf = BASELINE_M * float(cam.params[0]) if sensor != MONOCULAR else 0.0
+    slam = SlamSystem(SystemConfig(cam=cam, sensor=sensor, feat_cap=N_FEATURES,
                                    extractor=ExtractorConfig(n_features=N_FEATURES),
-                                   use_loop_closing=True, device=str(dev)))
-    fe = slam.make_chunked_frontend(chunk=chunk, lag=1, async_mapping=async_mapping)
+                                   use_loop_closing=True, device=str(dev), bf=bf,
+                                   min_depth=MIN_DEPTH, depth_scale=1.0, th_far_points=0.0))
+    fe = slam.make_chunked_frontend(chunk=chunk, lag=1, async_mapping=async_mapping,
+                                    stereo=sensor == STEREO, rgbd=sensor == RGBD)
+
+    def track(i):
+        return fe.track_image(frames[i], ts=i / 20.0,
+                              **({extra_kw: extra[i]} if extra_kw else {}))
+
     setup_s = time.perf_counter() - t0
     am = slam.async_mapper
     drain = am.flush if am is not None else (lambda: None)
@@ -890,6 +987,34 @@ def _main_path(dev, scene, async_mapping=True, start=0):
     slam.tracker._create_keyframe = counted_create_keyframe
     if busy_fn is not None:
         slam.tracker.mapper_busy_fn = counted_busy
+    # stereo / rgbd: the chunk step's match / lookup, timed on the host and by
+    # CUDA events on its stream, and the close points keyframes spawn from depth
+    stage = {STEREO: ("stereo_match", "match"), RGBD: ("depth_lookup", "lookup")}.get(sensor)
+    stage_times, spawned = [], {"points": 0, "keyframes": 0}
+    if stage is not None:
+        step = fe._chunk_step()
+        stage_fn = getattr(step, stage[1])
+
+        def timed_stage(*a):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            ev0.record()
+            try:
+                return stage_fn(*a)
+            finally:
+                ev1.record()
+                stage_times.append(((time.perf_counter() - t) * 1e3, ev0, ev1))
+
+        setattr(step, stage[1], timed_stage)
+        spawn = slam.tracker._spawn_depth_points
+
+        def counted_spawn(k_, rec):
+            n0 = int(slam.map.mp_valid.sum())
+            spawn(k_, rec)
+            spawned["points"] += int(slam.map.mp_valid.sum()) - n0
+            spawned["keyframes"] += 1
+
+        slam.tracker._spawn_depth_points = counted_spawn
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem_before = torch.cuda.memory_allocated()
@@ -897,18 +1022,19 @@ def _main_path(dev, scene, async_mapping=True, start=0):
     with contextlib.ExitStack() as stack:
         plain_calls = _count_plain_calls(stack)
         loop_launches = _count_loop_matches(stack)
+        stereo_launches = _count_stereo_matches(stack)
         HAMMING_KERNEL.launches = matcher.MATCH_KERNEL.launches = 0
         for i in range(N_SYSTEM_WARM):
-            retired += fe.track_image(frames[i], ts=i / 20.0)
+            retired += track(i)
         drain()  # the mapper's first keyframes drain before the timer, as bench.py
         warm = {"hamming_matrix": HAMMING_KERNEL.launches,
                 "mutual_best_match": matcher.MATCH_KERNEL.launches}
-        n_warm_dispatch = len(dispatches)
+        n_warm_dispatch, n_warm_stage = len(dispatches), len(stage_times)
         fe.stats.samples.clear()
         slam.mapper.stats.samples.clear()
         t0 = time.perf_counter()
         for i in range(N_SYSTEM_WARM, n):
-            retired += fe.track_image(frames[i], ts=i / 20.0)
+            retired += track(i)
         retired += fe.flush()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
@@ -951,12 +1077,26 @@ def _main_path(dev, scene, async_mapping=True, start=0):
              if len(set(overlap_ms)) > 1 else None)
     stepped = sum(d[2] for d in dispatches)
     pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
+    stage_result = {}
+    if stage is not None:  # the timed chunks' match / lookup (events are done: synchronized)
+        dev_ms = [e0.elapsed_time(e1) for _, e0, e1 in stage_times[n_warm_stage:]]
+        host_ms = [h for h, _, _ in stage_times[n_warm_stage:]]
+        stage_result = {stage[0]: {"chunks": len(dev_ms),
+                                   "ms_per_chunk_mean": float(np.mean(dev_ms)),
+                                   "ms_per_chunk_p50": pct(dev_ms, 50),
+                                   "ms_per_chunk_p90": pct(dev_ms, 90),
+                                   "host_ms_per_chunk_p50": pct(host_ms, 50),
+                                   "share_of_chunk_p50": (pct(dev_ms, 50) / pct(chunk_ms, 50)
+                                                          if chunk_ms else None)}}
     n_timed = n - N_SYSTEM_WARM
     c = slam.closer
     closer_stages = {name: {"total_ms": float(np.sum(v) * 1e3), "count": len(v)}
                      for name, v in c.stats.samples.items()}
     result = {
-        "phase": scene, "start": start, "frames": n, "frame_cut": n_full - n,
+        # frames cut from the scene's 400 (the rgbd phase's cut, if made, shows here)
+        "phase": scene, "start": start, "frames": n,
+        "frame_cut": (N_LOOP_FRAMES if scene == "loop" else N_SYSTEM_FRAMES) - n,
+        "sensor": {MONOCULAR: "monocular", STEREO: "stereo", RGBD: "rgbd"}[sensor], "bf": bf,
         "warm_frames": N_SYSTEM_WARM, "timed_frames": n_timed, "size": [FRAME_W, FRAME_H],
         "n_features": N_FEATURES, "chunk": chunk, "lag": 1, "async_mapping": async_mapping,
         "loop_closing": True, "setup_s": setup_s, "timed_wall_s": wall_s,
@@ -991,7 +1131,9 @@ def _main_path(dev, scene, async_mapping=True, start=0):
         "chunk_stepped_frames": stepped, "slow_path_frames": n - stepped,
         "launches": launches, "launches_warm_up": warm,
         "launches_per_chunk_stepped_frame": {k_: v / max(stepped, 1) for k_, v in launches.items()},
-        "launches_by_stage": loop_launches,
+        "launches_by_stage": loop_launches, "stereo_match_launches": stereo_launches,
+        "depth_stage_ms": stage_result, "close_points_spawned": spawned["points"],
+        "keyframes_spawning_points": spawned["keyframes"],
         "plain_calls": plain_calls, "mapper_errors": am.errors if am is not None else [],
         "native_covis": native.get_lib() is not None,
         "frontend_stages": fe_stats, "mapper_stages": map_stats,
@@ -1061,6 +1203,65 @@ def phase_loop(dev, async_mapping=True, start=0):
     return result
 
 
+def _match_check(dev):
+    """One headline frame's left -> right match on the card against the same
+    features' match on the CPU (the plain Hamming version): exact."""
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig, ORBExtractor
+    from orb_slam3_modified_tpu_torch.ops.stereo_match import match_stereo
+
+    k = FRAME_W / 752
+    cam = Camera.pinhole(458.654 * k, 457.296 * k, 367.215 * k, 248.375 * k,
+                         width=FRAME_W, height=FRAME_H, device=dev)
+    _, frames = _headline(cam)
+    right = _headline_depth(cam, "stereo")
+    ex = ORBExtractor(ExtractorConfig(n_features=N_FEATURES), FRAME_H, FRAME_W, device=dev)
+    f = ex(torch.from_numpy(np.stack([frames[100], right[100]])).to(dev))
+    args = [x[i] for i in (0, 1) for x in (f.uv, f.desc, f.level, f.valid)]
+    bf = BASELINE_M * float(cam.params[0])
+    got = match_stereo(*args, bf, MIN_DEPTH)
+    want = match_stereo(*(a.cpu() for a in args), bf, MIN_DEPTH)
+    exact = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    return {"frame": 100, "shape": [N_FEATURES, N_FEATURES], "exact": exact,
+            "matched": int(want[2].sum())}
+
+
+def phase_depth(dev, scene, async_mapping=True, start=0):
+    """The stereo or rgbd main path (see the module docstring). Gates beside
+    the common ones: every timed frame tracked, |s - 1| < SCALE_GATE, ATE no
+    worse than the reference's worst run on the same frames, the fused entry
+    at least twice per chunk-stepped frame, and (stereo) the matrix entry at
+    least once per frame by the stereo match, whose card result equals the
+    CPU's on one frame."""
+    ref = {"stereo": REF_STEREO, "rgbd": REF_RGBD}[scene]
+    check = _match_check(dev) if scene == "stereo" else None
+    result, failures = _main_path(dev, scene, async_mapping, start)
+    n, n_timed, stepped = result["frames"], result["timed_frames"], result["chunk_stepped_frames"]
+    emit({"phase": f"{scene}_against_reference", "reference": ref,
+          "port": {k_: result[k_] for k_ in ("tracked_timed", "keyframes", "map_points", "ate_m",
+                                             "ate_scale")}})
+    if check is not None:
+        emit({"phase": "stereo_match_check", **check})
+        if not check["exact"]:
+            failures.append(f"the stereo match on the card differs from the CPU's: {check}")
+    if result["tracked_timed"] != n_timed:
+        failures.append(f"{n_timed - result['tracked_timed']} timed frames not tracked")
+    if not abs(result["ate_scale"] - 1.0) < SCALE_GATE:
+        failures.append(f"scale {result['ate_scale']}: |s - 1| >= {SCALE_GATE}")
+    if start == 0 and not result["ate_m"] <= ref["ate_gate_m"]:
+        failures.append(f"ATE {result['ate_m']} m > {ref['ate_gate_m']} (the reference's worst "
+                        f"on these frames)")
+    if result["launches"]["mutual_best_match"] < 2 * stepped:
+        failures.append(f"the fused entry launched fewer than 2 times per chunk-stepped frame: "
+                        f"{result['launches']['mutual_best_match']} for {stepped}")
+    if scene == "stereo" and result["stereo_match_launches"]["hamming_matrix"] < n:
+        failures.append(f"the stereo match launched the matrix entry "
+                        f"{result['stereo_match_launches']['hamming_matrix']} times for {n} frames")
+    if failures:
+        raise SystemExit(f"{scene} failed: " + "; ".join(failures))
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU",
@@ -1076,6 +1277,8 @@ def main():
     phase_breakdown(dev, ctx)
     system = phase_system(dev)
     loop = phase_loop(dev)
+    stereo = phase_depth(dev, "stereo")
+    rgbd = phase_depth(dev, "rgbd")
     source = "orb_slam3_modified_tpu_torch/csrc/hamming.cu"
     replaces = "orb_slam3_modified_tpu/ops/pallas_kernels.py:31"
     hot_h, hot_m = hamming[(4096, 1024)], match[(4096, 1024, True)]
@@ -1089,7 +1292,10 @@ def main():
             "launches": system["launches"]["hamming_matrix"], "on_main_path": True,
             "launches_by_path": {"slice": slice_result["launches"]["hamming_matrix"],
                                  "system": system["launches"]["hamming_matrix"],
-                                 "loop": loop["launches"]["hamming_matrix"]},
+                                 "loop": loop["launches"]["hamming_matrix"],
+                                 "stereo": stereo["launches"]["hamming_matrix"],
+                                 "rgbd": rgbd["launches"]["hamming_matrix"]},
+            "stereo_match_launches": stereo["stereo_match_launches"]["hamming_matrix"],
             "loop_by_stage": {stage: v["hamming_matrix"]
                               for stage, v in loop["launches_by_stage"].items()},
             "kernel_phase_calls": kernel_launches["hamming_matrix"],
@@ -1103,7 +1309,9 @@ def main():
             "launches": system["launches"]["mutual_best_match"], "on_main_path": True,
             "launches_by_path": {"slice": slice_result["launches"]["mutual_best_match"],
                                  "system": system["launches"]["mutual_best_match"],
-                                 "loop": loop["launches"]["mutual_best_match"]},
+                                 "loop": loop["launches"]["mutual_best_match"],
+                                 "stereo": stereo["launches"]["mutual_best_match"],
+                                 "rgbd": rgbd["launches"]["mutual_best_match"]},
             "loop_by_stage": {stage: v["mutual_best_match"]
                               for stage, v in loop["launches_by_stage"].items()},
             "kernel_phase_calls": kernel_launches["mutual_best_match"],

@@ -7,13 +7,19 @@ bits: the reference's (N, 8) uint32 become (N, 8) int32 by a bit view.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import numpy as np
 import torch
 
 from . import resolve_device
 from .cameras import Camera
 from .features.extractor import ExtractorConfig, Features
+from .lie.se3 import SE3np
+from .slam_map.map_state import MapState
 from .tracking.fused import DeviceTrackState, MapCache
+from .tracking.tracker import FrameRecord
 
 
 def _t(x, device, dtype=None):
@@ -66,4 +72,43 @@ def features(f, device="cuda") -> Features:
         uv=_t(f.uv, dev, np.float32), desc=desc_from_uint32(f.desc, dev),
         angle=_t(f.angle, dev, np.float32), level=_t(f.level, dev, np.int32),
         response=_t(f.response, dev, np.float32), valid=_t(f.valid, dev, bool),
+    )
+
+
+def host_features(f) -> Features:
+    """A reference Features (one frame) -> the port's host Features (numpy,
+    uint32 descriptors), as the port's tracker takes them."""
+    return Features(*(np.array(x) for x in f))
+
+
+def map_state(src, dst: MapState = None) -> MapState:
+    """A reference MapState -> the port's: every array (kf_ur, the
+    keyframes' right-image u, included) and bookkeeping field, copied; the
+    removal callbacks stay the destination's. dst: a port MapState of the
+    same capacities to copy into, else a new one."""
+    if dst is None:
+        K, F = src.kf_obs.shape
+        dst = MapState.create(K, src.mp_valid.shape[0], F)
+    for f in dataclasses.fields(src):
+        if f.name == "kf_removed_callbacks":
+            continue
+        v = getattr(src, f.name)
+        if isinstance(v, np.ndarray):
+            np.copyto(getattr(dst, f.name), v)
+        else:
+            setattr(dst, f.name, copy.deepcopy(v))
+    return dst
+
+
+def frame_record(rec) -> FrameRecord:
+    """A reference tracker's FrameRecord -> the port's, with its per-feature
+    depth and right-image u (stereo / RGB-D) when it has them."""
+    def opt(a):
+        return None if a is None else np.array(a, np.float32)
+
+    return FrameRecord(
+        host_features(rec.features),
+        SE3np(np.array(rec.T_cw.R, np.float32), np.array(rec.T_cw.t, np.float32)),
+        np.array(rec.obs_mp, np.int32), float(rec.ts), int(rec.frame_id),
+        depth=opt(rec.depth), ur=opt(rec.ur),
     )

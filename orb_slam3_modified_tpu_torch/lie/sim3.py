@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
 from . import so3
 from .se3 import SE3, _mv
 
@@ -26,7 +27,9 @@ class Sim3(NamedTuple):
     t: torch.Tensor  # (..., 3)
 
     @staticmethod
-    def identity(batch_shape=(), dtype=torch.float32, device="cpu"):
+    def identity(batch_shape=(), dtype=torch.float32, device="cuda"):
+        """The identity on `device` (an entry point's default: the card)."""
+        device = resolve_device(device)
         return Sim3(
             torch.ones(batch_shape, dtype=dtype, device=device),
             torch.eye(3, dtype=dtype, device=device).expand(*batch_shape, 3, 3),

@@ -442,4 +442,6 @@ def _pad_problem(prob: BAProblem, device) -> BAProblem:
         obs_uv=padn(prob.obs_uv, Ob),
         obs_inv_s2=padn(prob.obs_inv_s2, Ob, 1.0),
         obs_valid=padn(prob.obs_valid, Ob, False),
+        obs_ur=None if prob.obs_ur is None else padn(prob.obs_ur, Ob, -1.0),
+        bf=prob.bf,
     )

@@ -5,10 +5,11 @@ response for every pixel from 16 shifted views of the image (torch.roll wraps
 as jnp.roll does; the border mask hides the wrap), then a 3x3 non-maximum
 suppression. Maps are (B, H, W) float32.
 
-The contiguous-arc-of-9 test packs the 16 ring comparisons into one integer
-per pixel and ANDs 9 shifted copies of the doubled mask. The reference packs
-into uint32; torch's CPU build has no uint32 right shift, so the port packs
-into int64, where the 32-bit doubled mask is non-negative and shifts are exact.
+The contiguous-arc-of-9 test ANDs the 16 ring comparisons with their
+circular shifts by doubling (runs of 2, 4, 8, then 9) and asks whether any
+run of 9 is set: the reference's test (it packs the comparisons into one
+uint32 per pixel and ANDs 9 shifted copies of the doubled mask), on bool
+planes, which moves a fraction of the bytes of a packed int64 form.
 """
 from __future__ import annotations
 
@@ -34,14 +35,10 @@ def _ring_views(img):
 def _arc_ok(mask16):
     """mask16: (16, B, H, W) bool -> (B, H, W) bool: any 9 contiguous ring
     bits set (circular)."""
-    bits = mask16[0].to(torch.int64)
-    for k in range(1, 16):
-        bits = bits | (mask16[k].to(torch.int64) << k)
-    d = bits | (bits << 16)
-    acc = d
-    for k in range(1, ARC_LEN):
-        acc = acc & (d >> k)
-    return acc != 0
+    run2 = mask16 & torch.roll(mask16, -1, 0)  # ring k and k+1
+    run4 = run2 & torch.roll(run2, -2, 0)
+    run8 = run4 & torch.roll(run4, -4, 0)
+    return torch.any(run8 & torch.roll(mask16, -(ARC_LEN - 1), 0), dim=0)
 
 
 def border_mask(h, w, margin, device):
@@ -60,13 +57,12 @@ def fast_score_maps(img, th_hi: float, th_lo: float):
     border = border_mask(img.shape[-2], img.shape[-1], BORDER, img.device)
 
     def one(th):
-        brighter = diff > th
-        darker = diff < -th
-        is_corner = _arc_ok(brighter) | _arc_ok(darker)
-        sb = torch.sum(torch.where(brighter, diff - th, 0.0), dim=0)
-        sd = torch.sum(torch.where(darker, -diff - th, 0.0), dim=0)
-        score = torch.maximum(sb, sd)
-        return torch.where(is_corner & border, score, 0.0)
+        is_corner = _arc_ok(diff > th) | _arc_ok(diff < -th)
+        # the exceedances of the brighter (diff > th) and the darker
+        # (diff < -th) ring pixels: positive exactly there, else clamped to 0
+        sb = torch.sum(torch.clamp(diff - th, min=0.0), dim=0)
+        sd = torch.sum(torch.clamp(-diff - th, min=0.0), dim=0)
+        return torch.where(is_corner & border, torch.maximum(sb, sd), 0.0)
 
     return one(th_hi), one(th_lo)
 

@@ -2,10 +2,13 @@
 
 Port of orb_slam3_modified_tpu/optim/ba.py (Optimizer::LocalBundleAdjustment
 / GlobalBundleAdjustemnt, src/Optimizer.cc:1116, :60, and g2o's block
-Schur solver), monocular rows:
+Schur solver):
 - K camera poses (SE3 SoA), P points, O observations as fixed-capacity COO
   arrays (obs_cam, obs_pt, obs_uv, obs_inv_s2, obs_valid);
 - per-observation 2x6 / 2x3 jacobians in closed form for the whole batch;
+  with obs_ur set, stereo observations (obs_ur >= 0) get a third row
+  uR = u - bf/z (EdgeStereo, include/G2oTypes.h:414) and the 7.815 chi2
+  gate, the others stay monocular (their third row is masked off);
 - the reduced camera system as a dense (6K, 6K) matrix, batched 3x3 point
   block inverses, then one (6K, 6K) solve; fixed cameras pinned to the
   identity block (g2o setFixed);
@@ -33,7 +36,7 @@ import torch
 from ..cameras import Camera, project, project_jac
 from ..lie import se3, so3
 from ..lie.se3 import SE3
-from .robust import CHI2_MONO, DELTA_MONO, huber_weight
+from .robust import CHI2_MONO, CHI2_STEREO, DELTA_MONO, DELTA_STEREO, huber_weight
 
 
 class BAProblem(NamedTuple):
@@ -50,8 +53,8 @@ class BAProblem(NamedTuple):
     obs_uv: torch.Tensor  # (O, 2) pixel measurement
     obs_inv_s2: torch.Tensor  # (O,) information (1/sigma^2 of the octave)
     obs_valid: torch.Tensor  # (O,) bool
-    obs_ur: torch.Tensor = None  # stereo rows: not in the monocular slice
-    bf: torch.Tensor = None
+    obs_ur: torch.Tensor = None  # (O,) right-image u, < 0 = monocular; None: mono rows only
+    bf: torch.Tensor = None  # () baseline * fx (the reference's mbf)
 
 
 class BAResult(NamedTuple):
@@ -76,16 +79,28 @@ def to_device(prob: BAProblem, device) -> BAProblem:
         pt_valid=up(prob.pt_valid, bool), obs_cam=up(prob.obs_cam, np.int64),
         obs_pt=up(prob.obs_pt, np.int64), obs_uv=up(prob.obs_uv, np.float32),
         obs_inv_s2=up(prob.obs_inv_s2, np.float32), obs_valid=up(prob.obs_valid, bool),
+        obs_ur=None if prob.obs_ur is None else up(prob.obs_ur, np.float32),
+        bf=None if prob.bf is None else up(np.float32(prob.bf)).reshape(()),
     )
 
 
 def _obs_residuals(prob: BAProblem, cam: Camera, Rk, tk, pts):
-    """Residuals r (O, 2), jacobians Jpose (O, 2, 6) and Jpt (O, 2, 3), and
-    the camera-frame points pc (O, 3), for every observation."""
+    """Residuals r (O, R), jacobians Jpose (O, R, 6) and Jpt (O, R, 3), and
+    the camera-frame points pc (O, 3), for every observation; R = 2 rows,
+    or 3 with obs_ur set (uR = u - bf/z, d uR / d pc = d u / d pc +
+    (0, 0, bf/z^2))."""
     Rc = Rk[prob.obs_cam]  # (O, 3, 3)
     pc = (Rc @ pts[prob.obs_pt][..., None])[..., 0] + tk[prob.obs_cam]
-    r = project(cam, pc) - prob.obs_uv
+    uv = project(cam, pc)
     Jproj = project_jac(cam, pc)  # (O, 2, 3)
+    if prob.obs_ur is None:
+        r = uv - prob.obs_uv
+    else:
+        z = torch.clamp(pc[..., 2], min=1e-6)
+        r = torch.cat([uv - prob.obs_uv, (uv[..., 0] - prob.bf / z - prob.obs_ur)[:, None]], dim=-1)
+        e_z = torch.zeros_like(pc)
+        e_z[:, 2] = prob.bf / (z * z)
+        Jproj = torch.cat([Jproj, (Jproj[:, 0, :] + e_z)[:, None, :]], dim=1)
     I3 = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(pc.shape[0], 3, 3)
     Jpose = Jproj @ torch.cat([I3, -so3.hat(pc)], dim=-1)
     Jpt = Jproj @ Rc
@@ -103,11 +118,11 @@ def _sum_by_index(n, idx, vals):
 
 def _schur_solve(prob: BAProblem, K, P, wr, r, Jpose, Jpt, lam):
     """One damped Gauss-Newton step via the dense Schur complement.
-    wr: (O, 2) per-row weights. Returns (dx_cam (K, 6), dx_pt (P, 3))."""
+    wr: (O, R) per-row weights. Returns (dx_cam (K, 6), dx_pt (P, 3))."""
     dt, dev = r.dtype, r.device
     cam, pt = prob.obs_cam, prob.obs_pt
-    wJpose = wr[..., None] * Jpose  # (O, 2, 6)
-    wJpt = wr[..., None] * Jpt  # (O, 2, 3)
+    wJpose = wr[..., None] * Jpose  # (O, R, 6)
+    wJpt = wr[..., None] * Jpt  # (O, R, 3)
     # camera blocks (block-diagonal H_cc) and gradient
     H_blk = _sum_by_index(K, cam, wJpose.transpose(1, 2) @ Jpose)
     ar = torch.arange(K, device=dev)
@@ -148,19 +163,28 @@ def bundle_adjust(prob: BAProblem, cam: Camera, rounds: int = 2, iters_per_round
                   huber=None) -> BAResult:
     """Robust BA on a problem whose fields are tensors on one device (see
     to_device). Each round runs `iters_per_round` LM iterations, then marks
-    observations with chi2 > 5.991 (or negative depth) as outliers for the
-    next round. huber: None = Huber on all but the last round (the
-    reference schedule); True / False force it for every round."""
-    if prob.obs_ur is not None:
-        raise NotImplementedError("stereo BA rows come with the stereo slice (ROADMAP item 9)")
+    observations with chi2 > 5.991 (7.815 for a stereo row; or negative
+    depth) as outliers for the next round. huber: None = Huber on all but
+    the last round (the reference schedule); True / False force it for
+    every round."""
     K = prob.T_cw.t.shape[0]
     P = prob.points.shape[0]
     dt, dev = prob.points.dtype, prob.points.device
     obs_w = (prob.obs_valid.to(dt) * prob.pt_valid[prob.obs_pt].to(dt)) * prob.obs_inv_s2
+    if prob.obs_ur is None:
+        rmask = torch.ones((prob.obs_cam.shape[0], 2), dtype=dt, device=dev)
+        chi2_thr, delta = CHI2_MONO, DELTA_MONO
+    else:
+        # the uR row exists for stereo observations only
+        stereo = prob.obs_ur >= 0
+        rmask = torch.stack([torch.ones_like(prob.obs_ur), torch.ones_like(prob.obs_ur),
+                             stereo.to(dt)], dim=-1)
+        chi2_thr = torch.where(stereo, CHI2_STEREO, CHI2_MONO)
+        delta = torch.where(stereo, DELTA_STEREO, DELTA_MONO)
 
     def chi2_of(Rk, tk, pts):
         r, _, _, pc = _obs_residuals(prob, cam, Rk, tk, pts)
-        c = torch.sum(r * r, dim=-1) * prob.obs_inv_s2
+        c = torch.sum(r * r * rmask, dim=-1) * prob.obs_inv_s2
         return torch.where(pc[..., 2] > 0, c, torch.inf)
 
     Rk, tk, pts, inlier = prob.T_cw.R, prob.T_cw.t, prob.points, prob.obs_valid
@@ -169,24 +193,23 @@ def bundle_adjust(prob: BAProblem, cam: Camera, rounds: int = 2, iters_per_round
         lam = torch.full((), 1e-4, dtype=dt, device=dev)
         for _ in range(iters_per_round):
             r, Jpose, Jpt, pc = _obs_residuals(prob, cam, Rk, tk, pts)
-            chi2 = torch.sum(r * r, dim=-1) * prob.obs_inv_s2
+            chi2 = torch.sum(r * r * rmask, dim=-1) * prob.obs_inv_s2
             w = inlier.to(dt) * obs_w
             if use_huber:
-                w = w * huber_weight(chi2, DELTA_MONO)
+                w = w * huber_weight(chi2, delta)
             w = torch.where(pc[..., 2] > 0, w, 0.0)
-            wr = w[:, None].expand(-1, 2)
-            dx_cam, dx_pt = _schur_solve(prob, K, P, wr, r, Jpose, Jpt, lam)
+            dx_cam, dx_pt = _schur_solve(prob, K, P, w[:, None] * rmask, r, Jpose, Jpt, lam)
             T_new = se3.exp(dx_cam) @ SE3(Rk, tk)
             pts_new = pts + dx_pt
             c_old = torch.sum(torch.where(torch.isfinite(chi2), w * chi2, 0.0))
             r2, _, _, pc2 = _obs_residuals(prob, cam, T_new.R, T_new.t, pts_new)
-            chi2n = torch.sum(r2 * r2, dim=-1) * prob.obs_inv_s2
+            chi2n = torch.sum(r2 * r2 * rmask, dim=-1) * prob.obs_inv_s2
             c_new = torch.sum(torch.where(pc2[..., 2] > 0, w * chi2n, w * chi2))
             good = c_new < c_old
             Rk = torch.where(good, T_new.R, Rk)
             tk = torch.where(good, T_new.t, tk)
             pts = torch.where(good, pts_new, pts)
             lam = torch.where(good, lam * 0.5, lam * 5.0)
-        inlier = prob.obs_valid & (chi2_of(Rk, tk, pts) < CHI2_MONO)
+        inlier = prob.obs_valid & (chi2_of(Rk, tk, pts) < chi2_thr)
     Rk = so3.normalize(Rk)
     return BAResult(SE3(Rk, tk), pts, inlier, chi2_of(Rk, tk, pts))

@@ -1,8 +1,17 @@
 """Chunked tracking: K frames per device step, the host half behind it.
 
-Port of orb_slam3_modified_tpu/tracking/chunked.py, monocular:
+Port of orb_slam3_modified_tpu/tracking/chunked.py, monocular, stereo and
+RGB-D:
 - `make_chunk_step` / ChunkStep: batched ORB extraction over the chunk, then
   the fused track step for each frame in order, carrying DeviceTrackState.
+  `make_chunk_step_stereo` / StereoChunkStep extracts a chunk's left and
+  right images as one 2K-image batch and matches each frame left -> right
+  (ops/stereo_match.py, the Hamming kernel's matrix entry, one launch per
+  frame) before the per-frame loop, which tracks with (u, v, uR) rows.
+  `make_chunk_step_rgbd` / RgbdChunkStep looks the depth up at the keypoints
+  of all K frames in one gather and derives the virtual right uR = u - bf/z.
+  A chunk's stereo matches and depth lookups do not depend on the track
+  state, so they run before the loop.
 - `ChunkedTracker`: the host driver over tracking/tracker.py. It buffers
   frames (each uploaded as it arrives), dispatches a chunk, and starts the
   readback of the chunk's outputs and features into pinned host memory; a
@@ -13,10 +22,10 @@ Port of orb_slam3_modified_tpu/tracking/chunked.py, monocular:
   (Tracker.track), and a mid-chunk loss replays the kept host images through
   it until tracking recovers.
 
-Stereo, RGB-D and inertial chunks are later slices (ROADMAP items 9-10).
-Where the reference pads a short chunk with copies of its last frame (a
-fixed shape for XLA) and carries the device state through them, the port
-runs the chunk at its own length.
+Inertial chunks are a later slice (ROADMAP item 10). Where the reference
+pads a short chunk with copies of its last frame (a fixed shape for XLA)
+and carries the device state through them, the port runs the chunk at its
+own length.
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ from torch import nn
 from .. import resolve_device
 from ..features.extractor import ExtractorConfig, Features, ORBExtractor
 from ..lie.se3 import SE3np
+from ..ops.stereo_match import depth_from_depthmap, match_stereo, virtual_right
 from ..slam_map.map_state import NO_POINT
-from ..utils.fetch import Readback, upload
+from ..utils.fetch import Readback, fetch, upload
 from ..utils.timing import TimeStats
 from .fused import CACHE_CAP, DeviceTrackState, MapCache, StepOutput, TrackStep
 from .tracker import LOST, OK, RECENTLY_LOST, FrameRecord, features_to_host
@@ -48,21 +58,91 @@ class ChunkStep(nn.Module):
     feats are stacked over the K frames and stay on the device."""
 
     def __init__(self, cam, inv_s2_levels, ecfg: ExtractorConfig, rounds=3, iters=6,
-                 device="cuda"):
+                 device="cuda", bf: float = 0.0):
         super().__init__()
         dev = resolve_device(device)
         self.extractor = ORBExtractor(ecfg, cam.height, cam.width, device=dev)
-        self.step = TrackStep(cam, inv_s2_levels, ecfg.n_features, rounds, iters, device=dev)
+        self.step = TrackStep(cam, inv_s2_levels, ecfg.n_features, rounds, iters, bf=bf,
+                              device=dev)
+
+    def track(self, state: DeviceTrackState, cache: MapCache, feats: Features, urs=None):
+        """The fused step for each of the K frames in order; urs (K, F) adds
+        the frames' (u, v, uR) rows."""
+        outs = []
+        for k in range(feats.uv.shape[0]):
+            state, out = self.step(state, cache, feats.uv[k], feats.desc[k], feats.level[k],
+                                   feats.valid[k], None if urs is None else urs[k])
+            outs.append(out)
+        return state, StepOutput(*(torch.stack(f) for f in zip(*outs)))
 
     def forward(self, state: DeviceTrackState, cache: MapCache, imgs):
         feats = self.extractor(imgs)
-        outs = []
-        for k in range(imgs.shape[0]):
-            state, out = self.step(
-                state, cache, feats.uv[k], feats.desc[k], feats.level[k], feats.valid[k]
-            )
-            outs.append(out)
-        return state, StepOutput(*(torch.stack(f) for f in zip(*outs))), feats
+        state, outs = self.track(state, cache, feats)
+        return state, outs, feats
+
+
+class StereoChunkStep(ChunkStep):
+    """(state, cache, imgs_l, imgs_r (K, H, W) uint8) -> (state', outs, left
+    feats, ur (K, F), depth (K, F)): both images of every frame in one
+    extraction batch (the reference's parallel left / right extraction,
+    src/Frame.cc:122-123), the rectified row-band match of each frame, then
+    the track loop with stereo rows."""
+
+    def __init__(self, cam, inv_s2_levels, ecfg: ExtractorConfig, bf: float, min_z: float,
+                 rounds=3, iters=6, device="cuda"):
+        super().__init__(cam, inv_s2_levels, ecfg, rounds, iters, device, bf=float(bf))
+        self.bf, self.min_z = float(bf), float(min_z)
+
+    def match(self, feats: Features, feats_r: Features):
+        """Each frame's left -> right match (ComputeStereoMatches,
+        src/Frame.cc:811): ur, depth (K, F), -1 where unmatched."""
+        urs, depths = [], []
+        for k in range(feats.uv.shape[0]):
+            u_r, d, ok = match_stereo(feats.uv[k], feats.desc[k], feats.level[k], feats.valid[k],
+                                      feats_r.uv[k], feats_r.desc[k], feats_r.level[k],
+                                      feats_r.valid[k], self.bf, self.min_z)
+            urs.append(torch.where(ok, u_r, -1.0))
+            depths.append(torch.where(ok, d, -1.0))
+        return torch.stack(urs), torch.stack(depths)
+
+    def forward(self, state: DeviceTrackState, cache: MapCache, imgs_l, imgs_r):
+        K = imgs_l.shape[0]
+        both = self.extractor(torch.cat([imgs_l, imgs_r]))
+        feats = Features(*(f[:K] for f in both))
+        urs, depths = self.match(feats, Features(*(f[K:] for f in both)))
+        state, outs = self.track(state, cache, feats, urs)
+        return state, outs, feats, urs, depths
+
+
+class RgbdChunkStep(ChunkStep):
+    """(state, cache, imgs (K, H, W) uint8, depth maps (K, H, W) float32) ->
+    (state', outs, feats, ur (K, F), depth (K, F)): the depth at each
+    keypoint and the virtual right uR = u - bf/z feed the same stereo rows
+    (ComputeStereoFromRGBD, src/Frame.cc:984); bf = 0 spawns points from
+    depth without stereo rows."""
+
+    def __init__(self, cam, inv_s2_levels, ecfg: ExtractorConfig, bf: float,
+                 depth_scale: float = 1.0, th_far: float = 0.0, rounds=3, iters=6,
+                 device="cuda"):
+        super().__init__(cam, inv_s2_levels, ecfg, rounds, iters, device, bf=float(bf))
+        self.bf, self.depth_scale, self.th_far = float(bf), float(depth_scale), float(th_far)
+
+    def lookup(self, feats: Features, dmaps):
+        """ur, depth (K, F) of the chunk's keypoints, in one gather."""
+        d = depth_from_depthmap(feats.uv, dmaps, self.depth_scale)
+        if self.th_far > 0:
+            d = torch.where(d > self.th_far, -1.0, d)
+        if self.bf > 0:
+            ur = virtual_right(feats.uv, d, self.bf, feats.valid)
+        else:
+            ur = torch.full_like(d, -1.0)
+        return ur, d
+
+    def forward(self, state: DeviceTrackState, cache: MapCache, imgs, dmaps):
+        feats = self.extractor(imgs)
+        urs, depths = self.lookup(feats, dmaps)
+        state, outs = self.track(state, cache, feats, urs)
+        return state, outs, feats, urs, depths
 
 
 def make_chunk_step(cam, inv_s2_levels, ecfg: ExtractorConfig, rounds=3, iters=6,
@@ -71,17 +151,36 @@ def make_chunk_step(cam, inv_s2_levels, ecfg: ExtractorConfig, rounds=3, iters=6
     return ChunkStep(cam, inv_s2_levels, ecfg, rounds, iters, device=device)
 
 
-class _PendingChunk:
-    __slots__ = ("fids", "tss", "n_valid", "readback", "outs", "feats", "cache_ids", "imgs")
+def make_chunk_step_stereo(cam, inv_s2_levels, ecfg: ExtractorConfig, bf: float, min_z: float,
+                           rounds=3, iters=6, device="cuda"):
+    """The stereo chunk step as a StereoChunkStep module (rectified pairs)."""
+    return StereoChunkStep(cam, inv_s2_levels, ecfg, bf, min_z, rounds, iters, device=device)
 
-    def __init__(self, fids, tss, readback, cache_ids, imgs):
+
+def make_chunk_step_rgbd(cam, inv_s2_levels, ecfg: ExtractorConfig, bf: float,
+                         depth_scale: float = 1.0, th_far: float = 0.0, rounds=3, iters=6,
+                         device="cuda"):
+    """The RGB-D chunk step as an RgbdChunkStep module."""
+    return RgbdChunkStep(cam, inv_s2_levels, ecfg, bf, depth_scale, th_far, rounds, iters,
+                         device=device)
+
+
+class _PendingChunk:
+    __slots__ = ("fids", "tss", "n_valid", "readback", "outs", "feats", "urs", "depths",
+                 "cache_ids", "imgs", "imgs_r")
+
+    def __init__(self, fids, tss, readback, cache_ids, imgs, imgs_r):
         self.fids = fids
         self.tss = tss
         self.n_valid = len(fids)
-        self.readback = readback  # (StepOutput, Features) copying home
+        self.readback = readback  # (StepOutput, Features, ur, depth) copying home
         self.outs = self.feats = None  # host copies, once retired
+        self.urs = self.depths = None  # (K, F) host copies (stereo / RGB-D), once retired
         self.cache_ids = cache_ids
-        self.imgs = imgs  # host copies, for the slow-path replay after a loss
+        # host copies, for the slow-path replay after a loss: the images, and
+        # the right images (stereo) or depth maps (RGB-D), else Nones
+        self.imgs = imgs
+        self.imgs_r = imgs_r
 
 
 class ChunkedTracker:
@@ -93,11 +192,12 @@ class ChunkedTracker:
 
     def __init__(self, tracker, ecfg: ExtractorConfig, chunk: int = 16, lag: int = 1,
                  map_lock=None, rounds: int = 3, iters: int = 6, stereo: bool = False,
-                 rgbd: bool = False):
-        if stereo or rgbd:
-            raise NotImplementedError("stereo / RGB-D chunks: ROADMAP item 9")
+                 min_z: float = 0.3, rgbd: bool = False, depth_scale: float = 1.0,
+                 th_far: float = 0.0):
         if tracker.cfg.cam.height == 0 or tracker.cfg.cam.width == 0:
             raise ValueError("the camera needs its image size for the chunk step")
+        if stereo and rgbd:
+            raise ValueError("a frontend is stereo or RGB-D, not both")
         self.tracker = tracker
         self.cfg = tracker.cfg
         self.device = tracker.device
@@ -109,8 +209,17 @@ class ChunkedTracker:
         self.map_lock = map_lock or threading.RLock()
         self.rounds = rounds
         self.iters = iters
+        # stereo: rectified pairs, matched per frame (min_z: the least depth);
+        # RGB-D: a float32 depth map per frame (depth_scale: map units to
+        # meters; th_far > 0 drops farther readings)
+        self.stereo = stereo
+        self.min_z = min_z
+        self.rgbd = rgbd
+        self.depth_scale = depth_scale
+        self.th_far = th_far
         self._step = None
-        self._buf = []  # [(fid, ts, img_u8 host, img device)]
+        # [(fid, ts, img_u8 host, img device, right image / depth map host, device)]
+        self._buf = []
         self._pending: deque[_PendingChunk] = deque()
         self.state: DeviceTrackState | None = None
         self.cache: MapCache | None = None
@@ -220,28 +329,49 @@ class ChunkedTracker:
 
     def _chunk_step(self) -> ChunkStep:
         if self._step is None:
-            self._step = make_chunk_step(self.tracker.cam, self.cfg.inv_level_sigma2(), self.ecfg,
-                                         self.rounds, self.iters, device=self.device)
+            args = (self.tracker.cam, self.cfg.inv_level_sigma2(), self.ecfg)
+            if self.stereo:
+                self._step = make_chunk_step_stereo(*args, self.cfg.bf, self.min_z, self.rounds,
+                                                    self.iters, device=self.device)
+            elif self.rgbd:
+                self._step = make_chunk_step_rgbd(*args, self.cfg.bf, self.depth_scale,
+                                                  self.th_far, self.rounds, self.iters,
+                                                  device=self.device)
+            else:
+                self._step = make_chunk_step(*args, self.rounds, self.iters, device=self.device)
         return self._step
 
     # -------------------------------------------------------------- track
     def track_image(self, img, ts: float, img_right=None, imu_samples=None, depth_img=None):
-        """img: (H, W) uint8 (or castable). Returns the retired frames."""
-        if img_right is not None or depth_img is not None:
-            raise NotImplementedError("stereo / RGB-D chunks: ROADMAP item 9")
+        """img: (H, W) uint8 (or castable); img_right: the rectified right
+        image, required in stereo mode; depth_img: (H, W) depth map (times
+        depth_scale: meters), required in RGB-D mode. Returns the retired
+        frames."""
         if imu_samples is not None:
             raise NotImplementedError("inertial chunks: ROADMAP item 10")
+        if self.rgbd:
+            if depth_img is None:
+                raise ValueError("an RGB-D frontend needs depth_img with every frame")
+            img_right = np.asarray(depth_img, np.float32)  # the depth rides the right slot
+        elif self.stereo:
+            if img_right is None:
+                raise ValueError("a stereo frontend needs img_right with every frame")
+            img_right = np.asarray(img_right, np.uint8)
+        else:
+            img_right = None
         t = self.tracker
         retired = []
         if t.state != OK or t.ref_kf < 0:
             # everything dispatched or buffered lands first
             retired += self.flush()
-            retired.append(self._track_slow(np.asarray(img, np.uint8), ts))
+            retired.append(self._track_slow(np.asarray(img, np.uint8), ts, img_right))
             return retired
         img_h = np.asarray(img, np.uint8)
         with self.stats.measure("upload"):
-            img_d = upload(img_h, self.device)  # one frame's copy as it arrives
-        self._buf.append((t.frame_id, ts, img_h, img_d))
+            # one frame's copies as it arrives
+            img_d = upload(img_h, self.device)
+            imgr_d = None if img_right is None else upload(img_right, self.device)
+        self._buf.append((t.frame_id, ts, img_h, img_d, img_right, imgr_d))
         t.frame_id += 1
         # while tracking sags, dispatch every 4 frames so keyframes and cache
         # refreshes land sooner
@@ -260,13 +390,13 @@ class ChunkedTracker:
             replay = []
             while self._pending:
                 q = self._pending.popleft()
-                replay += [(q.fids[i], q.tss[i], q.imgs[i]) for i in range(q.n_valid)]
-            replay += [(b[0], b[1], b[2]) for b in self._buf]
+                replay += self._frames_of(q, 0)
+            replay += [(b[0], b[1], b[2], b[4]) for b in self._buf]
             self._buf = []
             results = []
-            for fid, ts, img in replay:
+            for fid, ts, img, img_r in replay:
                 t.frame_id = fid
-                results.append(self._track_slow(img, ts))
+                results.append(self._track_slow(img, ts, img_r))
             return results
         retired = []
         if self._buf:
@@ -283,19 +413,49 @@ class ChunkedTracker:
             with self.stats.measure("mapper_wait"):
                 self.async_mapper.flush()
 
-    def _track_slow(self, img, ts):
+    @staticmethod
+    def _frames_of(q: _PendingChunk, start: int):
+        """(fid, ts, img, right image / depth map) of a pending chunk's
+        frames from `start` on, for the slow-path replay."""
+        return [(q.fids[i], q.tss[i], q.imgs[i], q.imgs_r[i]) for i in range(start, q.n_valid)]
+
+    def _slow_frame(self, img_d, img_r):
+        """The slow path's frame through the extractor on the device, with
+        its stereo match (stereo) or depth lookup (RGB-D): host (Features,
+        depth, ur), depth and ur None for a monocular frame."""
+        step = self._chunk_step()
+        if not (self.stereo or self.rgbd):
+            feats = Features(*(f[0] for f in step.extractor(img_d[None])))
+            return features_to_host(feats), None, None
+        if self.stereo:
+            both = step.extractor(torch.stack([img_d, upload(img_r, self.device)]))
+            feats, feats_r = (Features(*(f[i] for f in both)) for i in (0, 1))
+            u_r, d, ok = match_stereo(feats.uv, feats.desc, feats.level, feats.valid,
+                                      feats_r.uv, feats_r.desc, feats_r.level, feats_r.valid,
+                                      self.cfg.bf, self.min_z)
+            feats, ur, depth = fetch((feats, torch.where(ok, u_r, -1.0), torch.where(ok, d, -1.0)))
+        else:
+            feats = Features(*(f[0] for f in step.extractor(img_d[None])))
+            d = depth_from_depthmap(feats.uv, upload(img_r, self.device), self.depth_scale)
+            if self.th_far > 0:
+                d = torch.where(d > self.th_far, -1.0, d)
+            ur = virtual_right(feats.uv, d, self.cfg.bf) if self.cfg.bf > 0 else None
+            feats, ur, depth = fetch((feats, ur, d))
+        return Features(feats.uv, feats.desc.view(np.uint32), *feats[2:]), depth, ur
+
+    def _track_slow(self, img, ts, img_r=None):
         """Per-frame slow path (initialization, recovery): the mapper is
         drained before and after, so the frame sees, and the fast path
-        resumes on, a map no worker is changing."""
+        resumes on, a map no worker is changing. img_r: the frame's right
+        image (stereo) or depth map (RGB-D)."""
         with self.stats.measure("slow_path"):
             t = self.tracker
             img_d = upload(np.asarray(img, np.uint8), self.device)
-            feats = self._chunk_step().extractor(img_d[None])
-            feats = features_to_host(Features(*(f[0] for f in feats)))
+            feats, depth, ur = self._slow_frame(img_d, img_r)
             self._drain_mapper()
             with self.map_lock:
                 fid = t.frame_id
-                T = t.track(feats, ts)
+                T = t.track(feats, ts, depth=depth, ur=ur)
                 if t.state == LOST and self.loss_fn is not None:
                     self.loss_fn()  # Atlas recovery: store the map / start fresh
             self._drain_mapper()
@@ -317,14 +477,19 @@ class ChunkedTracker:
         step = self._chunk_step()
         with self.stats.measure("dispatch"):
             imgs_d = torch.stack([b[3] for b in self._buf])
-            self.state, outs, feats = step(self.state, self.cache, imgs_d)
+            if self.stereo or self.rgbd:
+                self.state, outs, feats, urs, depths = step(
+                    self.state, self.cache, imgs_d, torch.stack([b[5] for b in self._buf]))
+            else:
+                self.state, outs, feats = step(self.state, self.cache, imgs_d)
+                urs = depths = None
             # the outputs and the chunk's features start copying home now and
             # are read a chunk later; keyframe creation at retire time is then
             # pure host work
-            readback = Readback((outs, feats))
+            readback = Readback((outs, feats, urs, depths))
         self._pending.append(_PendingChunk([b[0] for b in self._buf], [b[1] for b in self._buf],
                                            readback, self.cache_ids,
-                                           [b[2] for b in self._buf]))
+                                           [b[2] for b in self._buf], [b[4] for b in self._buf]))
         self._buf = []
 
     @staticmethod
@@ -344,7 +509,7 @@ class ChunkedTracker:
             with self.stats.measure("mapper_wait"):
                 am.wait_drained()
         with self.stats.measure("retire_sync"):
-            p.outs, p.feats = p.readback.wait()
+            p.outs, p.feats, p.urs, p.depths = p.readback.wait()
             p.readback = None
         with self.stats.measure("retire_host"):
             with self.map_lock:
@@ -377,6 +542,8 @@ class ChunkedTracker:
         cfg = self.cfg
         R_all, t_all, n_inl_all, obs_cache_all = p.outs
         fid, ts = p.fids[i], p.tss[i]
+        depth = None if p.depths is None else p.depths[i]
+        ur = None if p.urs is None else p.urs[i]
         n_inl = int(n_inl_all[i])
         R, tt = R_all[i], t_all[i]
         T = SE3np(R, tt)
@@ -396,7 +563,7 @@ class ChunkedTracker:
                      m.n_keyframes(), m.n_points())
             self._low_streak = 0
             t.state = RECENTLY_LOST
-            t.last = FrameRecord(self._features(p, i), T, obs_mp, ts, fid)
+            t.last = FrameRecord(self._features(p, i), T, obs_mp, ts, fid, depth=depth, ur=ur)
             self.state = None
             self.cache = None
             results.append((fid, ts, None))
@@ -407,7 +574,7 @@ class ChunkedTracker:
                     and t.frames_since_kf + 1 >= 2 * cfg.min_frames_between_kf)
         if force_kf:
             self._low_streak = 0
-        rec = FrameRecord(self._features(p, i), T, obs_mp, ts, fid)
+        rec = FrameRecord(self._features(p, i), T, obs_mp, ts, fid, depth=depth, ur=ur)
         if t.last is not None:
             vR = R @ t.last.T_cw.R.T
             t.velocity = SE3np(vR, tt - vR @ t.last.T_cw.t)
@@ -437,19 +604,24 @@ class ChunkedTracker:
         the tracker recovers, then hand the rest back to the fast path."""
         t = self.tracker
         results = []
-        replay = [(p.fids[i], p.tss[i], p.imgs[i]) for i in range(start, p.n_valid)]
+        replay = self._frames_of(p, start)
         while self._pending:
-            q = self._pending.popleft()
-            replay += [(q.fids[i], q.tss[i], q.imgs[i]) for i in range(q.n_valid)]
-        replay += [(b[0], b[1], b[2]) for b in self._buf]
+            replay += self._frames_of(self._pending.popleft(), 0)
+        replay += [(b[0], b[1], b[2], b[4]) for b in self._buf]
         self._buf = []
-        for j, (fid, ts, img) in enumerate(replay):
+        for j, (fid, ts, img, img_r) in enumerate(replay):
             if t.state == OK and t.ref_kf >= 0 and j > 0:
-                for fid2, ts2, img2 in replay[j:]:
+                for fid2, ts2, img2, img_r2 in replay[j:]:
                     t.frame_id = fid2
-                    results += self.track_image(img2, ts2)
+                    results += self.track_image(img2, ts2, **self._right_kw(img_r2))
                     t.frame_id = max(t.frame_id, fid2 + 1)
                 return results
             t.frame_id = fid  # keep the original frame ids through the replay
-            results.append(self._track_slow(img, ts))
+            results.append(self._track_slow(img, ts, img_r))
         return results
+
+    def _right_kw(self, img_r):
+        """track_image's keyword for a kept right image or depth map."""
+        if self.rgbd:
+            return {"depth_img": img_r}
+        return {"img_right": img_r} if self.stereo else {}

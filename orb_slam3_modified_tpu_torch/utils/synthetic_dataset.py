@@ -1,7 +1,10 @@
 """Rendered synthetic frames: a textured plane under a known trajectory.
 
-Numpy port of camera_rays, render_textured_scene and orbit_state from
-orb_slam3_modified_tpu/utils/synthetic_dataset.py.
+Numpy port of camera_rays, render_textured_scene,
+render_textured_scene_with_depth and orbit_state from
+orb_slam3_modified_tpu/utils/synthetic_dataset.py, and of the cam1 (right
+image of a rectified pair) and depth renderings of its write_euroc_sequence,
+in memory: the EuRoC folder reader comes with ROADMAP item 13.
 """
 from __future__ import annotations
 
@@ -92,18 +95,82 @@ def render_textured_scene(
     return img.reshape(h, w).astype(np.float32)
 
 
-def render_sequence(cam, T_cw, texture, plane_z: float = 2.0, plane_half: float = 10.0):
-    """(F, H, W) uint8 frames of the textured plane seen from the poses T_cw
-    (SE3 of F CPU tensors), as bench.py renders its headline scene."""
-    rays = camera_rays(cam)
-    frames = []
+def render_textured_scene_with_depth(T_cw, cam, texture, plane_z: float = 6.0,
+                                     plane_half: float = 12.0, rays_c=None):
+    """render_textured_scene plus the exact per-pixel camera depth (z in the
+    camera frame, 0 where the ray misses the plane) and the surface mask:
+    (img (H, W) float32, depth (H, W) float32, valid (H, W) bool)."""
+    h, w = cam.height, cam.width
+    if rays_c is None:
+        rays_c = camera_rays(cam)
+    R = T_cw[:3, :3]
+    t = T_cw[:3, 3]
+    c = -R.T @ t
+    d = rays_c @ R
+    denom = d[:, 2]
+    denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+    s = (plane_z - c[2]) / denom
+    pw = c[None] + s[:, None] * d
+    valid = (s > 0.1) & (np.abs(pw[:, 0]) < plane_half) & (np.abs(pw[:, 1]) < plane_half)
+    th, tw = texture.shape
+    pw = np.nan_to_num(pw)
+    tx = ((pw[:, 0] + plane_half) / (2 * plane_half) * (tw - 1)).astype(np.int32)
+    ty = ((pw[:, 1] + plane_half) / (2 * plane_half) * (th - 1)).astype(np.int32)
+    tx = np.clip(tx, 0, tw - 1)
+    ty = np.clip(ty, 0, th - 1)
+    img = np.where(valid, texture[ty, tx], 20.0)
+    depth = np.where(valid, s, 0.0)  # the rays have z = 1, so the depth is s
+    return (img.reshape(h, w).astype(np.float32), depth.reshape(h, w).astype(np.float32),
+            valid.reshape(h, w))
+
+
+def _matrices(T_cw):
+    """(4, 4) float64 world -> camera matrices of the poses T_cw (SE3 of CPU tensors)."""
     for R, t in zip(T_cw.R.numpy(), T_cw.t.numpy()):
         T = np.eye(4)
         T[:3, :3] = R
         T[:3, 3] = t
-        img = render_textured_scene(T, cam, texture, plane_z, plane_half, rays)
-        frames.append(np.clip(img, 0, 255).astype(np.uint8))
-    return np.stack(frames)
+        yield T
+
+
+def _u8(img):
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def render_sequence(cam, T_cw, texture, plane_z: float = 2.0, plane_half: float = 10.0):
+    """(F, H, W) uint8 frames of the textured plane seen from the poses T_cw
+    (SE3 of F CPU tensors), as bench.py renders its headline scene."""
+    rays = camera_rays(cam)
+    return np.stack([_u8(render_textured_scene(T, cam, texture, plane_z, plane_half, rays))
+                     for T in _matrices(T_cw)])
+
+
+def render_stereo_sequence(cam, T_cw, texture, baseline: float, plane_z: float = 2.0,
+                           plane_half: float = 10.0):
+    """A rectified pair per pose: (left, right) (F, H, W) uint8, the right
+    camera displaced by +baseline along the left camera's x axis
+    (p_right = p_left - baseline * e_x), as write_euroc_sequence renders cam1."""
+    rays = camera_rays(cam)
+    T_rl = np.eye(4)
+    T_rl[0, 3] = -baseline
+    left, right = [], []
+    for T in _matrices(T_cw):
+        left.append(_u8(render_textured_scene(T, cam, texture, plane_z, plane_half, rays)))
+        right.append(_u8(render_textured_scene(T_rl @ T, cam, texture, plane_z, plane_half, rays)))
+    return np.stack(left), np.stack(right)
+
+
+def render_rgbd_sequence(cam, T_cw, texture, plane_z: float = 2.0, plane_half: float = 10.0):
+    """(frames (F, H, W) uint8, depth (F, H, W) float32 metric camera depth,
+    0 where no surface) for the poses T_cw."""
+    rays = camera_rays(cam)
+    frames, depths = [], []
+    for T in _matrices(T_cw):
+        img, depth, _ = render_textured_scene_with_depth(T, cam, texture, plane_z, plane_half,
+                                                         rays)
+        frames.append(_u8(img))
+        depths.append(depth)
+    return np.stack(frames), np.stack(depths)
 
 
 def orbit_state(t: float, period: float, radius: float, sweep: float,

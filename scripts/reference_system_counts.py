@@ -1,4 +1,4 @@
-"""The JAX reference on the frames of chip_smoke.py's `system` and `loop` phases.
+"""The JAX reference on the frames of chip_smoke.py's main-path phases.
 
 Renders the scene exactly as chip_smoke.py does (the port's
 utils/synthetic_dataset.py: seeded texture upsampled by torch, 752x480
@@ -8,7 +8,14 @@ warm-up, the async mapper drained, then the rest. Scenes:
 
 - system: bench.py's headline scene, the 400-frame quarter orbit, chunk 16;
 - loop: bench.py's ring scene (run_hard_scene), one full revolution in 400
-  frames over a 2048^2 texture from a 128^2 draw, chunk 8.
+  frames over a 2048^2 texture from a 128^2 draw, chunk 8;
+- stereo: the headline scene as a rectified pair (the right camera
+  displaced by the EuRoC baseline, configs/euroc_stereo.yaml's
+  Stereo.T_c1_c2 x), sensor STEREO, bf = baseline * fx, min_depth 0.3,
+  chunk 16;
+- rgbd: the headline scene with the renderer's float32 metric depth map,
+  sensor RGBD, depth_scale 1, the same bf as a virtual baseline,
+  th_far_points 0, chunk 16.
 
 Prints one JSON line per scene with the tracked / timed frames, keyframes,
 map points, maps, the closer's counts (loops, merges, global BAs),
@@ -16,7 +23,8 @@ relocalization attempts and successes, and the scale-aligned ATE of the
 whole trajectory and of the keyframes of the largest map, for comparison with the port's
 counts on the card. No time is printed: this runs on the CPU.
 
-    JAX_PLATFORMS=cpu python scripts/reference_system_counts.py [system|loop ...] [--frames N]
+    JAX_PLATFORMS=cpu python scripts/reference_system_counts.py \
+        [system|loop|stereo|rgbd ...] [--frames N]
 """
 import argparse
 import json
@@ -31,28 +39,40 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 N_WARM = 64
-SCENES = {"system": 16, "loop": 8}  # scene -> chunk
+SCENES = {"system": 16, "loop": 8, "stereo": 16, "rgbd": 16}  # scene -> chunk
+FX = 458.654
+BASELINE_M = 0.110074137800478  # configs/euroc_stereo.yaml, Stereo.T_c1_c2 x
+BF = BASELINE_M * FX
+MIN_DEPTH = 0.3
 
 
 def scene_frames(scene, n_frames=400):
-    """(frames (F, 480, 752) uint8, SE3 of the true poses) as chip_smoke.py renders them."""
+    """(frames (F, 480, 752) uint8, the right images (stereo) or depth maps
+    (rgbd) or None, SE3 of the true poses) as chip_smoke.py renders them."""
     from orb_slam3_modified_tpu_torch.cameras import Camera as TCamera
     from orb_slam3_modified_tpu_torch.utils.synthetic import orbit_trajectory
     from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import (
-        make_texture, render_sequence, ring_trajectory,
+        make_texture, render_rgbd_sequence, render_sequence, render_stereo_sequence,
+        ring_trajectory,
     )
 
-    tcam = TCamera.pinhole(458.654, 457.296, 367.215, 248.375, width=752, height=480,
-                           device="cpu")
+    tcam = TCamera.pinhole(FX, 457.296, 367.215, 248.375, width=752, height=480, device="cpu")
     if scene == "loop":
         T_all = ring_trajectory(n_frames)
         tex = make_texture(0, 128, 2048)
     else:
         T_all = orbit_trajectory(n_frames, radius=4.0, sweep=np.pi / 2)
         tex = make_texture(0, 96, 1024)
+    extra = None
     with np.errstate(invalid="ignore"):  # rays parallel to the plane
-        frames = render_sequence(tcam, T_all, tex, plane_z=2.0, plane_half=10.0)
-    return frames, T_all
+        if scene == "stereo":
+            frames, extra = render_stereo_sequence(tcam, T_all, tex, BASELINE_M, plane_z=2.0,
+                                                   plane_half=10.0)
+        elif scene == "rgbd":
+            frames, extra = render_rgbd_sequence(tcam, T_all, tex, plane_z=2.0, plane_half=10.0)
+        else:
+            frames = render_sequence(tcam, T_all, tex, plane_z=2.0, plane_half=10.0)
+    return frames, extra, T_all
 
 
 def run(scene, n_frames=400):
@@ -60,14 +80,20 @@ def run(scene, n_frames=400):
     from orb_slam3_modified_tpu.cameras import Camera
     from orb_slam3_modified_tpu.eval.ate import ate_rmse
     from orb_slam3_modified_tpu.features.extractor import ExtractorConfig
-    from orb_slam3_modified_tpu.system.slam_system import SlamSystem, SystemConfig
+    from orb_slam3_modified_tpu.system.slam_system import (
+        MONOCULAR, RGBD, STEREO, SlamSystem, SystemConfig,
+    )
     from orb_slam3_modified_tpu_torch.eval.ate import largest_map_ate
 
-    frames, T_all = scene_frames(scene, n_frames)
-    slam = SlamSystem(SystemConfig(cam=Camera.pinhole(458.654, 457.296, 367.215, 248.375,
+    frames, extra, T_all = scene_frames(scene, n_frames)
+    sensor = {"stereo": STEREO, "rgbd": RGBD}.get(scene, MONOCULAR)
+    slam = SlamSystem(SystemConfig(cam=Camera.pinhole(FX, 457.296, 367.215, 248.375,
                                                       width=752, height=480),
-                                   feat_cap=1024, extractor=ExtractorConfig(n_features=1024),
-                                   use_loop_closing=True))
+                                   sensor=sensor, feat_cap=1024,
+                                   extractor=ExtractorConfig(n_features=1024),
+                                   use_loop_closing=True,
+                                   bf=BF if sensor != MONOCULAR else 0.0, min_depth=MIN_DEPTH,
+                                   depth_scale=1.0, th_far_points=0.0))
     reloc = {"attempts": 0, "successes": 0}
     inner = slam.tracker.relocalize_fn
 
@@ -78,6 +104,18 @@ def run(scene, n_frames=400):
         return res
 
     slam.tracker.relocalize_fn = counted
+    # close points made from depth at keyframe insertion (stereo / RGB-D);
+    # the mapper worker waits on the map lock the retire holds meanwhile
+    spawned = {"points": 0, "keyframes": 0}
+    spawn = slam.tracker._spawn_depth_points
+
+    def counted_spawn(k, rec):
+        n0 = int(slam.map.mp_valid.sum())
+        spawn(k, rec)
+        spawned["points"] += int(slam.map.mp_valid.sum()) - n0
+        spawned["keyframes"] += 1
+
+    slam.tracker._spawn_depth_points = counted_spawn
     closer_calls = {"queries": 0, "verifications": 0}
     for name, key in (("_detect", "queries"), ("_verify", "verifications")):
         def wrapped(*a, _f=getattr(slam.closer, name), _k=key):
@@ -85,10 +123,12 @@ def run(scene, n_frames=400):
             return _f(*a)
 
         setattr(slam.closer, name, wrapped)
-    fe = slam.make_chunked_frontend(chunk=SCENES[scene], lag=1)
+    fe = slam.make_chunked_frontend(chunk=SCENES[scene], lag=1, stereo=scene == "stereo",
+                                    rgbd=scene == "rgbd")
+    kw = {"stereo": "img_right", "rgbd": "depth_img"}.get(scene)
     retired = []
     for i in range(n_frames):
-        retired += fe.track_image(frames[i], ts=i / 20.0)
+        retired += fe.track_image(frames[i], ts=i / 20.0, **({kw: extra[i]} if kw else {}))
         if i + 1 == N_WARM:
             slam.async_mapper.flush()
     retired += fe.flush()
@@ -116,7 +156,8 @@ def run(scene, n_frames=400):
         "gba_aborted": c.n_gba_aborted, "reloc_attempts": reloc["attempts"],
         "reloc_successes": reloc["successes"], "ate_m": rmse, "ate_scale": scale,
         "largest_map_kf_ate_m": lm_rmse, "largest_map_kf_scale": lm_scale,
-        "largest_map_keyframes": lm_kfs,
+        "largest_map_keyframes": lm_kfs, "close_points_spawned": spawned["points"],
+        "keyframes_spawning": spawned["keyframes"],
     }), flush=True)
 
 

@@ -606,3 +606,63 @@ def test_system_relocalizes_merges_and_closes_on_the_card():
     assert matcher.MATCH_KERNEL.launches - launches0 >= closer.n_verifications
     assert len(np.unique(m.kf_map[live])) == 1
     assert ate < 0.5
+
+
+@pytest.mark.cuda
+def test_stereo_match_on_the_card_equals_the_cpu():
+    """ops/stereo_match.py::match_stereo at the stereo phase's (1024, 1024):
+    on the card the distance matrix is one launch of the matrix entry, and
+    u_r, depth and valid equal the CPU's (the plain version) exactly."""
+    dev = _card()
+    from orb_slam3_modified_tpu_torch.ops.stereo_match import match_stereo
+
+    rng = np.random.default_rng(11)
+    n = 1024
+    uv_l = np.stack([rng.uniform(0, 752, n), rng.uniform(0, 480, n)], -1).astype(np.float32)
+    perm = rng.permutation(n)
+    uv_r = uv_l[perm] - np.stack([rng.uniform(-5, 90, n), rng.normal(0, 1.0, n)], -1)
+    lvl_l = rng.integers(0, 8, n)
+    lvl_r = np.clip(lvl_l[perm] + rng.integers(-1, 2, n), 0, 7)
+    d_l = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    d_r = np.where(rng.uniform(size=(n, 1)) < 0.5, d_l[perm] ^ (1 << rng.integers(0, 32, (n, 8))),
+                   rng.integers(0, 2**32, (n, 8), dtype=np.uint32)).astype(np.uint32)
+    cpu = [torch.from_numpy(uv_l), convert.desc_from_uint32(d_l, device="cpu"),
+           torch.from_numpy(lvl_l.astype(np.int32)), torch.from_numpy(rng.uniform(size=n) < 0.95),
+           torch.from_numpy(uv_r.astype(np.float32)), convert.desc_from_uint32(d_r, device="cpu"),
+           torch.from_numpy(lvl_r.astype(np.int32)), torch.from_numpy(rng.uniform(size=n) < 0.95)]
+    bf = 0.110074 * 458.654
+    want = match_stereo(*cpu, bf, 0.3)
+    before = th.HAMMING_KERNEL.launches
+    got = match_stereo(*(a.to(dev) for a in cpu), bf, 0.3)
+    torch.cuda.synchronize()
+    assert th.HAMMING_KERNEL.launches == before + 1
+    assert int(want[2].sum()) > 100
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_remap_bilinear_on_the_card_matches_the_cpu():
+    """cameras/rectify.py::remap_bilinear at 752x480 with EuRoC's
+    rectification maps (tests/test_rectify.py's calibration): the card's
+    result within 1e-3 grey levels of the CPU's (a lerp of four float32
+    products, which the card may contract into fused multiply-adds)."""
+    dev = _card()
+    from orb_slam3_modified_tpu_torch.cameras.rectify import build_rectification
+
+    K1 = np.array([[458.654, 0, 367.215], [0, 457.296, 248.375], [0, 0, 1]])
+    D1 = np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0])
+    K2 = np.array([[457.587, 0, 379.999], [0, 456.134, 255.238], [0, 0, 1]])
+    D2 = np.array([-0.28368365, 0.07451284, -0.00010473, -3.55590700e-05, 0.0])
+    c, s = np.cos(0.003), np.sin(0.003)
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    rect = build_rectification(K1, D1, K2, D2, (752, 480), R,
+                               np.array([-0.1100738, 0.000399121, -0.000853703]))
+    rng = np.random.default_rng(3)
+    left = torch.from_numpy(rng.integers(0, 256, (480, 752), dtype=np.uint8))
+    right = torch.from_numpy(rng.integers(0, 256, (480, 752), dtype=np.uint8))
+    cpu = rect.remap(left, right)
+    card = rect.remap(left.to(dev), right.to(dev))
+    for a, b in zip(cpu, card):
+        assert b.device.type == "cuda" and b.shape == (480, 752)
+        torch.testing.assert_close(b.cpu(), a, atol=1e-3, rtol=0)

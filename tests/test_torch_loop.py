@@ -14,7 +14,6 @@ merge within MERGE_TOL (its weld BA leaves the monocular scale free).
 """
 import contextlib
 import copy
-import dataclasses
 import hashlib
 import os
 from unittest import mock
@@ -104,7 +103,7 @@ def test_sim3_group_operations_match_reference():
     T = SE3(ta.R, ta.t)
     back = tsim3.Sim3.from_se3(T)
     assert torch.equal(back.s, torch.ones(16)) and torch.equal(back.R, ta.R)
-    ident = tsim3.Sim3.identity((4,))
+    ident = tsim3.Sim3.identity((4,), device="cpu")
     for a, b in zip(ident, jsim3.Sim3.identity((4,))):
         assert np.array_equal(_np(a), np.asarray(b))
 
@@ -450,19 +449,6 @@ def _closers(jmap, tmap, voc_desc):
     return jcl, tcl
 
 
-def _copy_map(src, dst):
-    """Every array and bookkeeping field of one package's MapState into the
-    other's (the callbacks stay)."""
-    for f in dataclasses.fields(src):
-        if f.name == "kf_removed_callbacks":
-            continue
-        v = getattr(src, f.name)
-        if isinstance(v, np.ndarray):
-            np.copyto(getattr(dst, f.name), v)
-        else:
-            setattr(dst, f.name, copy.deepcopy(v))
-
-
 @pytest.mark.parametrize("case", ["propagation", "loop_edges"])
 def test_essential_graph_matches_reference(case):
     """TestEssentialGraphPropagation's weld scene (12 keyframes, the first two
@@ -510,7 +496,7 @@ def test_essential_graph_matches_reference(case):
         rel = jsim3.Sim3(jnp.asarray(1.0), jnp.asarray(R_ji), jnp.asarray(snap_t[0] - R_ji @ snap_t[-1]))
         S = jsim3.exp(jnp.asarray([0.02, -0.01, 0.01, 0.005, 0.01, 0.0, 0.01], jnp.float32)) @ rel
         extra = (11, 0, S)
-    _copy_map(jm, tm)
+    convert.map_state(jm, tm)
     jcl, tcl = _closers(jm, tm, rng.integers(0, 2**32, (512, 8), dtype=np.uint32))
     jcl._run_essential_graph(kfs, fixed, snap_R, snap_t, extra_edge=extra)
     t_extra = None if extra is None else (11, 0, tsim3.Sim3(*(_t(np.asarray(x)) for x in extra[2])))
@@ -572,7 +558,7 @@ def test_closer_on_the_reference_keyframes_closes_the_same_loop():
 
     def on_keyframe(k):
         jmapper.on_keyframe(k)
-        _copy_map(jm, tm)
+        convert.map_state(jm, tm)
         callbacks, jm.kf_removed_callbacks = jm.kf_removed_callbacks, []
         snapshot = copy.deepcopy(jm)
         jm.kf_removed_callbacks = callbacks
@@ -609,7 +595,7 @@ def test_closer_on_the_reference_keyframes_closes_the_same_loop():
         m.mp_map[late_pts] = 1
         m.n_maps, m.active_map = 2, 1
     tm2 = MapState.create(max_kf=128, max_mp=32768, feat_cap=768)
-    _copy_map(ms[1], tm2)
+    convert.map_state(ms[1], tm2)
     jcl2 = JLoopCloser(JLoopCloserConfig(), jcfg, jcl.voc, ms[0])
     tcl2 = LoopCloser(LoopCloserConfig(), tcfg, tcl.voc, tm2, device="cpu")
     c = int(np.flatnonzero((j0.kf_frame_id == tcl.loops[0][1]) & j0.kf_valid)[0])

@@ -137,23 +137,28 @@ def test_anchor_falls_back_to_a_covisible_keyframe():
 
 
 def test_system_refuses_what_later_slices_bring():
-    """The other sensors raise instead of running without them; loop closing,
-    ported since, is on by default and builds the closer and the
-    relocalization hook."""
+    """The inertial sensors raise instead of running without the IMU (ROADMAP
+    item 10); monocular, stereo and RGB-D build. Loop closing, ported since,
+    is on by default and builds the closer and the relocalization hook."""
     from orb_slam3_modified_tpu_torch.system.slam_system import (
-        IMU_MONOCULAR, STEREO, SlamSystem, SystemConfig,
+        IMU_MONOCULAR, IMU_RGBD, IMU_STEREO, RGBD, STEREO, SlamSystem, SystemConfig,
     )
 
     cam = convert.camera(JCAM, device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP item 9"):
-        SlamSystem(SystemConfig(cam=cam, sensor=STEREO, device="cpu"))
-    with pytest.raises(ValueError, match="ROADMAP item 10"):
-        SlamSystem(SystemConfig(cam=cam, sensor=IMU_MONOCULAR, device="cpu"))
+    for sensor in (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD):
+        with pytest.raises(ValueError, match="ROADMAP item 10"):
+            SlamSystem(SystemConfig(cam=cam, sensor=sensor, device="cpu"))
+    for sensor in (STEREO, RGBD):  # ORB-SLAM3's keyframe ratio for depth sensors
+        tcfg = SlamSystem(SystemConfig(cam=cam, sensor=sensor, bf=50.0, use_loop_closing=False,
+                                       device="cpu")).tcfg
+        assert (tcfg.bf, tcfg.kf_tracked_ratio) == (50.0, 0.75)
     slam = SlamSystem(SystemConfig(cam=cam, device="cpu"))
+    assert slam.tcfg.kf_tracked_ratio == 0.9
     assert slam.closer is not None and slam.tracker.relocalize_fn is not None
     assert SlamSystem(SystemConfig(cam=cam, use_loop_closing=False, device="cpu")).closer is None
-    with pytest.raises(NotImplementedError):
-        slam.make_chunked_frontend(stereo=True)
+    fe = slam.make_chunked_frontend(async_mapping=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+        fe.track_image(np.zeros((480, 752), np.uint8), 0.0, imu_samples=([], [], []))
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         slam.closer._global_vi_ba()
 

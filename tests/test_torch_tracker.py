@@ -104,3 +104,30 @@ def test_port_meets_the_reference_gates_and_agrees_with_its_run(runs):
     c_j = np.array([np.linalg.inv(T)[:3, 3] for _, T in jest[:10]])
     _, _, _, err = align_horn(c_t.T, c_j.T)
     assert err.max() < POSE_TOL, err
+
+
+def test_port_tracks_the_kb8_fisheye_course():
+    """tests/test_e2e_fisheye.py's course on the port's Tracker + LocalMapper
+    (a Kannala-Brandt-8 camera, 30 frames of a 45 deg orbit, the reference's
+    ideal features), with its gates: >= 25 frames tracked, OK at the end,
+    scale-aligned ATE < 0.03 m."""
+    kb8 = JCamera.kb8(190.978, 190.973, 254.932, 256.897, 0.00348238, 0.000715034, -0.00205323,
+                      0.000202936, width=512, height=512)
+    world = SyntheticFeatureWorld(n_points=6000, spread=5.0, seed=2, feat_cap=768, noise_px=0.4)
+    T_all = orbit_trajectory(30, radius=4.0, sweep=np.pi / 4)
+    m = MapState.create(max_kf=128, max_mp=16384, feat_cap=768)
+    tcfg = TrackerConfig(cam=convert.camera(kb8, device="cpu"))
+    tracker = Tracker(tcfg, m, device="cpu")
+    tracker.on_keyframe = LocalMapper(LocalMapperConfig(), tcfg, m, device="cpu").on_keyframe
+    gt_of = {}
+    for i in range(30):
+        T_cw = JSE3(T_all.R[i], T_all.t[i])
+        f, _ = world.observe(kb8, T_cw, max_feats=600)
+        tracker.track(Features(*(np.array(x) for x in f)), ts=i * 0.05)
+        gt_of[i] = np.asarray(T_cw.inverse().t)
+    traj = tracker.absolute_trajectory()
+    assert len(traj) >= 25, f"tracked {len(traj)}"
+    assert tracker.state == OK
+    est = np.array([np.linalg.inv(T)[:3, 3] for _, _, T in traj])
+    rmse, _ = ate_rmse(est, np.array([gt_of[fid] for _, fid, _ in traj]))
+    assert rmse < 0.03, f"fisheye ATE {rmse}"
