@@ -112,3 +112,69 @@ def frame_record(rec) -> FrameRecord:
         np.array(rec.obs_mp, np.int32), float(rec.ts), int(rec.frame_id),
         depth=opt(rec.depth), ur=opt(rec.ur),
     )
+
+
+def imu_bias(b, device="cuda"):
+    """A reference ImuBias -> the port's, on `device`."""
+    from .imu.preintegration import ImuBias
+
+    dev = resolve_device(device)
+    return ImuBias(_t(b.bg, dev, np.float32), _t(b.ba, dev, np.float32))
+
+
+def preintegrated(p, device="cuda"):
+    """A reference Preintegrated -> the port's, on `device`."""
+    from .imu.preintegration import Preintegrated
+
+    dev = resolve_device(device)
+    return Preintegrated(*(imu_bias(x, dev) if f == "bias" else _t(x, dev, np.float32)
+                           for f, x in zip(Preintegrated._fields, p)))
+
+
+def imu_config(cfg):
+    """A reference ImuConfig -> the port's (a copy)."""
+    from .tracking.imu_frontend import ImuConfig
+
+    out = ImuConfig(*(copy.deepcopy(getattr(cfg, f.name)) for f in dataclasses.fields(ImuConfig)))
+    for name in ("R_bc", "t_bc"):
+        if getattr(out, name) is not None:
+            setattr(out, name, np.asarray(getattr(out, name), np.float32))
+    return out
+
+
+def imu_frontend(src, dst=None, device="cuda"):
+    """A reference ImuFrontend's state -> the port's: the body velocity and
+    bias, the stage, the keyframe chain (host intervals), the priors, the
+    per-frame and per-keyframe intervals (on `device`), the gravity and
+    bad-IMU bookkeeping. dst: a port ImuFrontend to copy into, else a new
+    one on `device`."""
+    from .tracking.imu_frontend import ImuFrontend
+
+    if dst is None:
+        dst = ImuFrontend(imu_config(src.cfg), device=device)
+    dev = dst.device
+
+    def opt_np(a):
+        return None if a is None else np.array(a, np.float32)
+
+    def opt_pre(p, d):
+        return None if p is None else preintegrated(p, d)
+
+    dst.v_w = np.array(src.v_w, np.float32)
+    dst.bias = imu_bias(src.bias, dev)
+    dst.stage = int(src.stage)
+    dst.initialized = bool(src.initialized)
+    dst.kf_chain = [(int(k), int(f), preintegrated(p, "cpu")) for k, f, p in src.kf_chain]
+    dst.marg_prior = opt_np(src.marg_prior)
+    dst._marg_pending = opt_np(src._marg_pending)
+    dst.kf_prior = (None if src.kf_prior is None else
+                    (int(src.kf_prior[0]), int(src.kf_prior[1]), opt_np(src.kf_prior[2])))
+    dst.preint_frame = opt_pre(src.preint_frame, dev)
+    dst.preint_kf = opt_pre(src.preint_kf, dev)
+    dst._pred_v = opt_np(getattr(src, "_pred_v", None))
+    dst.first_kf_ts = None if src.first_kf_ts is None else float(src.first_kf_ts)
+    dst.R_gw = np.array(src.R_gw, np.float32)
+    dst.t_motion = float(src.t_motion)
+    dst.bad_imu = bool(src.bad_imu)
+    dst.refine_idx = int(src.refine_idx)
+    return dst

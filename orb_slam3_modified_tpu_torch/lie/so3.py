@@ -78,6 +78,11 @@ def left_jacobian(w):
     return _eye_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
 
 
+def right_jacobian(w):
+    """J_r(w) = J_l(-w) (RightJacobianSO3, src/ImuTypes.cc:48)."""
+    return left_jacobian(-w)
+
+
 def left_jacobian_inv(w):
     theta_sq = _theta_sq(w)
     small = theta_sq < _EPS
@@ -94,6 +99,11 @@ def left_jacobian_inv(w):
     )
     W = hat(w)
     return _eye_like(W) - 0.5 * W + cot_coeff[..., None, None] * (W @ W)
+
+
+def right_jacobian_inv(w):
+    """InverseRightJacobianSO3 (src/ImuTypes.cc:65)."""
+    return left_jacobian_inv(-w)
 
 
 # ---- quaternion helpers (wxyz convention) ----

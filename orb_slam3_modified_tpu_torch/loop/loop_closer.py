@@ -25,8 +25,12 @@ an abort flag, the port runs it inline: the closer's on_keyframe runs on the
 mapper worker right after that keyframe's local mapping
 (mapping/async_mapper.py), so the tracker's next retire, which waits for the
 worker, sees the corrected map, and the result depends on the frames alone.
-The inertial paths (_global_vi_ba, the imu / vi_refine_fn hooks) come with
-ROADMAP item 10 and raise.
+
+Inertial maps (the system sets `imu`, `vi_refine_fn` and fix_scale for the
+inertial sensors): the Sim3 is scale-fixed and must not tilt gravity, an
+initialized map corrects with translation and yaw only, the merge's weld is
+refined by the joint VI window BA (MergeInertialBA), and the global BA is
+the joint VI BA over the inertial chain (FullInertialBA).
 """
 from __future__ import annotations
 
@@ -67,6 +71,7 @@ class LoopCloserConfig:
     # src/Optimizer.cc:1560 region)
     covis_weight_strong: int = 100
     gba_max_kfs: int = 200  # GBA only for maps below 200 keyframes
+    fix_scale: bool = False  # the inertial sensors: the loop Sim3's scale is fixed
 
 
 def _host_sim3(s, R, t) -> Sim3:
@@ -101,7 +106,8 @@ class LoopCloser:
         # frame id of the keyframe that last closed a loop: slots are reused,
         # so the cooldown compares frame ids (mnLastLoopKFid)
         self.last_loop_frame = -(10**9)
-        # inertial welding and the inertial GBA come with ROADMAP item 10
+        # the inertial sensors: tracking/imu_frontend.py::ImuFrontend, and the
+        # mapper's VI window BA (k) -> None for the weld after a merge
         self.imu = None
         self.vi_refine_fn = None
         slam_map.kf_removed_callbacks.append(self._on_kf_removed)
@@ -235,7 +241,8 @@ class LoopCloser:
         valid = upload(np.arange(SIM3_CAP) < n, dev)
         pc_d = upload(_pad1(pc, SIM3_CAP).astype(np.float32), dev)  # p1 = candidate frame
         pk_d = upload(_pad1(pk, SIM3_CAP).astype(np.float32), dev)  # p2 = current frame
-        res = solve_sim3_ransac(pc_d, pk_d, valid, k, min_inliers=cfg.min_sim3_inliers)
+        res = solve_sim3_ransac(pc_d, pk_d, valid, k, fix_scale=cfg.fix_scale,
+                                min_inliers=cfg.min_sim3_inliers)
         success, n_ransac = fetch((res.success, res.n_inliers))
         rec["ransac_inliers"] = int(n_ransac)
         if not bool(success):
@@ -251,7 +258,7 @@ class LoopCloser:
             upload(_pad1(m.kf_uv[k, slot_k_sel], SIM3_CAP), dev),
             upload(_pad1(inv_s2[m.kf_level[c, slot_c_sel]], SIM3_CAP, 1.0), dev),
             upload(_pad1(inv_s2[m.kf_level[k, slot_k_sel]], SIM3_CAP, 1.0), dev),
-            valid & res.inliers)
+            valid & res.inliers, fix_scale=cfg.fix_scale)
         S, inl, n_inl = fetch((res.S_12, res.inliers, res.n_inliers))
         S_r, inl_r, n_r = fetch((S_ref, inl_ref, n_ref))
         rec["refined_inliers"] = int(n_r)
@@ -259,6 +266,13 @@ class LoopCloser:
             S, inl, n_inl = S_r, inl_r, n_r
         inl = inl[:n]
         pairs = (mp_k[:n][inl], mp_c[:n][inl])
+        if cfg.fix_scale:
+            # an inertial map is gravity-aligned: a valid correction is yaw
+            # and translation only, so a hypothesis that tilts gravity by
+            # more than 5 degrees is rejected (src/LoopClosing.cc:235-260)
+            R_world = m.kf_R[c].T @ np.asarray(S.R) @ m.kf_R[k]
+            if np.degrees(np.arccos(np.clip(R_world[2, 2], -1.0, 1.0))) > 5.0:
+                return None
         return _host_sim3(S.s, S.R, S.t), int(n_inl), pairs
 
     # ----------------------------------------------------------- correction
@@ -398,7 +412,10 @@ class LoopCloser:
             res = fetch(bundle_adjust(to_device(prob, self.device), self.cam, 2, 5))
             _write_back_ba(m, prob, res, kf_sel, mp_sel)
         if self.vi_refine_fn is not None and self.imu is not None and self.imu.initialized:
-            raise NotImplementedError("the inertial weld (MergeInertialBA) comes with ROADMAP item 10")
+            # the joint VI window BA after the weld (MergeInertialBA,
+            # src/Optimizer.cc:3948, from MergeLocal2 src/LoopClosing.cc:1783;
+            # merge_map_into carried the velocities through the Sim3)
+            self.vi_refine_fn(int(k))
         # the essential graph over the rest of the merged map, the refined
         # weld window fixed (MergeLocal, src/LoopClosing.cc:1717)
         fixed = np.isin(kfs_all, np.asarray(window, kfs_all.dtype))
@@ -410,13 +427,18 @@ class LoopCloser:
         src/LoopClosing.cc:2268-2500): 2 rounds x 5 LM iterations over the
         whole active map, the oldest keyframe fixed, the problem padded to
         power-of-two buckets (mapping/local_mapper.py::_pad_problem), then
-        committed through slam_map/commit.py."""
+        committed through slam_map/commit.py. An IMU-initialized map goes
+        through the joint VI solver instead (_global_vi_ba), and falls back
+        here only when its inertial chain is too short."""
         if self.imu is not None and self.imu.initialized and self.map.imu_initialized:
-            return self._global_vi_ba()
+            if self._global_vi_ba():
+                return True
         with self.stats.measure("gba"):
             m = self.map
             kfs = m.keyframe_indices()
             mps = m.point_indices()
+            kfs_fid = m.kf_frame_id[kfs].copy()
+            pre_R, pre_t = m.kf_R[kfs].copy(), m.kf_t[kfs].copy()
             fixed = np.zeros(len(kfs), bool)
             fixed[int(np.argmin(m.kf_frame_id[kfs]))] = True
             prob = to_device(_pad_problem(_build_ba_problem(m, self.tcfg, kfs, mps, fixed),
@@ -427,9 +449,51 @@ class LoopCloser:
                 prob = prob._replace(T_cw=res.T_cw, points=res.points,
                                      obs_valid=prob.obs_valid & res.obs_inlier)
             R, t, pts = fetch((res.T_cw.R, res.T_cw.t, res.points))
-            commit_whole_map_solve(m, kfs, mps, R[: len(kfs)], t[: len(kfs)], pts[: len(mps)])
+            commit_whole_map_solve(m, kfs, kfs_fid, mps, R[: len(kfs)], t[: len(kfs)],
+                                   pts[: len(mps)], pre_R, pre_t)
             self.n_gba_runs += 1
         return True
 
-    def _global_vi_ba(self):
-        raise NotImplementedError("the inertial global BA (FullInertialBA) comes with ROADMAP item 10")
+    def _global_vi_ba(self) -> bool:
+        """The joint visual-inertial global BA over the whole inertial chain
+        (RunGlobalBundleAdjustment routes IMU-initialized maps to
+        FullInertialBA(pActiveMap, 7, ...), src/LoopClosing.cc:2284-2287,
+        src/Optimizer.cc:392-560): two rounds of 4 LM iterations, the
+        oldest chain keyframe fixed, the chi2 outliers dropped between them.
+        False (nothing done) when fewer than 4 chain keyframes survive."""
+        from ..imu.preintegration import ImuBias
+        from ..optim.vi_ba import build_vi_problem, to_device as vi_to_device, vi_bundle_adjust
+
+        m = self.map
+        kfs_chain, pres = self.imu.valid_chain(m)
+        if len(kfs_chain) < 4:
+            return False
+        with self.stats.measure("gba"):
+            kfs = np.asarray(kfs_chain)
+            kfs_fid = m.kf_frame_id[kfs].copy()
+            fixed = np.zeros(len(kfs), bool)
+            fixed[0] = True  # gauge: the oldest chain keyframe
+            prob, _, mp_sel = build_vi_problem(m, self.tcfg, list(kfs), pres[1:], fixed, 0.0, 0.0,
+                                               self.imu.cfg, pt_bucket=16384, obs_bucket=8192,
+                                               state_fixed=np.zeros(len(kfs), bool))
+            pre_R, pre_t = m.kf_R[kfs].copy(), m.kf_t[kfs].copy()
+            prob = vi_to_device(prob, self.device)
+            for _ in range(2):
+                res = vi_bundle_adjust(prob, self.cam, 1, 4)
+                prob = prob._replace(T_cw=res.T_cw, points=res.points, v_w=res.v_w, bg=res.bg,
+                                     ba=res.ba, obs_valid=prob.obs_valid & res.obs_inlier)
+            res = fetch(res)
+            K0 = len(kfs)
+            alive = m.kf_valid[kfs] & (m.kf_frame_id[kfs] == kfs_fid)
+            m.kf_vel[kfs[alive]] = res.v_w[:K0][alive]
+            m.kf_bias[kfs[alive], :3] = res.bg[:K0][alive]
+            m.kf_bias[kfs[alive], 3:] = res.ba[:K0][alive]
+            commit_whole_map_solve(m, kfs, kfs_fid, np.asarray(mp_sel), res.T_cw.R[:K0],
+                                   res.T_cw.t[:K0], res.points[:len(mp_sel)], pre_R, pre_t)
+            # the frontend's state follows the newest chain keyframe
+            if alive[-1]:
+                self.imu.v_w = res.v_w[K0 - 1].astype(np.float32)
+                self.imu.bias = ImuBias(upload(res.bg[K0 - 1], self.device),
+                                        upload(res.ba[K0 - 1], self.device))
+            self.n_gba_runs += 1
+        return True

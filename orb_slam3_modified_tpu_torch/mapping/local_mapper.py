@@ -10,7 +10,9 @@ triangulation, BA), reads its results back to the host, and commits them
 to the map under the lock again; the tracker only ever sees the numpy map.
 The mapper's batched matches take ONE Hamming-matrix launch for all
 neighbours (features/matcher.py::batched_mutual_best_match).
-The inertial refinement (_vi_refine) comes with ROADMAP item 10.
+Once the IMU is initialized (`mapper.imu`, set by the system for the
+inertial sensors), the temporal-window visual-inertial BA (_vi_refine,
+LocalInertialBA) takes the local BA's place.
 """
 from __future__ import annotations
 
@@ -65,6 +67,8 @@ class LocalMapper:
         # set by AsyncLocalMapper: mutation phases take the map lock, device
         # work runs without it
         self.lock = contextlib.nullcontext()
+        # tracking/imu_frontend.py::ImuFrontend for the inertial sensors
+        self.imu = None
 
     def _up(self, arr, dtype=None):
         arr = np.asarray(arr)
@@ -89,10 +93,49 @@ class LocalMapper:
         with self.stats.measure("fuse"):
             self._fuse_neighbors(k)
         if m.n_keyframes() > 2:
-            with self.stats.measure("local_ba"):
-                self._local_ba(k)
+            # once the IMU is initialized the temporal-window VI BA REPLACES
+            # the visual local BA (LocalMapping::Run picks LocalInertialBA,
+            # src/LocalMapping.cc:148-155)
+            if self.imu is not None and self.imu.initialized:
+                with self.stats.measure("vi_refine"):
+                    self._vi_refine(k)
+            else:
+                with self.stats.measure("local_ba"):
+                    self._local_ba(k)
         with self.stats.measure("kf_cull"), self.lock:
             self._cull_keyframes(k)
+
+    def _vi_refine(self, k: int, window_size: int = 10):
+        """Temporal-window joint visual-inertial BA (Optimizer::
+        LocalInertialBA, src/Optimizer.cc:2383): the last `window_size`
+        keyframes of the surviving chain (intervals merged across culled
+        ones), poses, velocities, per-keyframe biases and their points
+        together, the oldest keyframe's whole state pinned; then the chi2
+        outliers dropped, as the visual local BA does."""
+        from ..imu.preintegration import ImuBias
+        from ..optim.vi_ba import build_vi_problem, to_device, vi_bundle_adjust, write_back_vi
+
+        m = self.map
+        imu = self.imu
+        with self.lock:
+            kfs_all, pres_all = imu.valid_chain(m)
+            kfs = kfs_all[-window_size:]
+            pres = pres_all[-window_size:][1:] if len(kfs_all) >= 2 else []
+            if len(kfs) < 3:
+                return
+            fixed = np.zeros(len(kfs), bool)
+            fixed[0] = True
+            prob, kfs_np, mp_sel = build_vi_problem(m, self.tcfg, kfs, pres, fixed, 0.0, 0.0,
+                                                    imu.cfg, obs_bucket=8192)
+        res = fetch(vi_bundle_adjust(to_device(prob, self.device), self.cam, 2, 6))
+        with self.lock:
+            write_back_vi(m, res, kfs_np, mp_sel)
+            self._drop_ba_outliers(m, prob, res, kfs_np, mp_sel)
+        K = len(kfs)
+        imu.v_w = res.v_w[K - 1].astype(np.float32)
+        imu.bias = ImuBias(self._up(res.bg[K - 1], np.float32),
+                           self._up(res.ba[K - 1], np.float32))
+        imu.bias_epoch += 1
 
     # ------------------------------------------------------- triangulation
     def _create_new_points(self, k: int):

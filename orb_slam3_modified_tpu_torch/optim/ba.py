@@ -116,9 +116,11 @@ def _sum_by_index(n, idx, vals):
     return out.index_put_((idx,), vals, accumulate=True)
 
 
-def _schur_solve(prob: BAProblem, K, P, wr, r, Jpose, Jpt, lam):
-    """One damped Gauss-Newton step via the dense Schur complement.
-    wr: (O, R) per-row weights. Returns (dx_cam (K, 6), dx_pt (P, 3))."""
+def _schur_reduce(prob: BAProblem, K, P, wr, r, Jpose, Jpt, lam):
+    """The point blocks (LM-damped) eliminated from the normal equations:
+    (S (6K, 6K) the undamped reduced camera system, b_red (6K,), and for the
+    back-substitution H_pp^-1 (P, 3, 3), W (P, 6K, 3), b_p (P, 3)).
+    wr: (O, R) per-row weights."""
     dt, dev = r.dtype, r.device
     cam, pt = prob.obs_cam, prob.obs_pt
     wJpose = wr[..., None] * Jpose  # (O, R, 6)
@@ -147,6 +149,14 @@ def _schur_solve(prob: BAProblem, K, P, wr, r, Jpose, Jpt, lam):
     WH = W @ H_pp_inv  # (P, 6K, 3)
     S = H_cc - WH.transpose(0, 1).reshape(6 * K, 3 * P) @ W.transpose(0, 1).reshape(6 * K, 3 * P).T
     b_red = b_c - torch.einsum("pac,pc->a", WH, b_p)
+    return S, b_red, H_pp_inv, W, b_p
+
+
+def _schur_solve(prob: BAProblem, K, P, wr, r, Jpose, Jpt, lam):
+    """One damped Gauss-Newton step via the dense Schur complement.
+    wr: (O, R) per-row weights. Returns (dx_cam (K, 6), dx_pt (P, 3))."""
+    dt = r.dtype
+    S, b_red, H_pp_inv, W, b_p = _schur_reduce(prob, K, P, wr, r, Jpose, Jpt, lam)
     # damp cameras + pin fixed cameras
     S = S + torch.diag(lam * torch.diagonal(S) + 1e-8)
     fixed6 = torch.repeat_interleave(prob.cam_fixed, 6)

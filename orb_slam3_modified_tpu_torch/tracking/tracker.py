@@ -26,8 +26,15 @@ bf/z). With depth the map starts from one frame (StereoInitialization,
 src/Tracking.cc:2338), keyframes spawn close points from depth
 (CreateNewKeyFrame, :3260), and the frame-to-frame odometry of localization
 mode tracks the last frame's depth points; with uR and bf > 0 the pose
-solves and the bundle adjustments carry (u, v, uR) rows. The IMU is a later
-slice (ROADMAP item 10).
+solves and the bundle adjustments carry (u, v, uR) rows.
+
+With an IMU (`tracker.imu`, tracking/imu_frontend.py, wired by the system for
+the inertial sensors) every frame's samples are preintegrated on the device;
+once the staged init has run, the IMU predicts the pose, the pose solves
+become the 30-D visual-inertial solve with its marginalization prior
+(optim/vi_pose_opt.py), short visual blackouts are bridged by dead
+reckoning, keyframes follow at least every half second and keep coming
+while RECENTLY_LOST, and each keyframe may trigger the next init stage.
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ from ..geom import reconstruct_two_views
 from ..lie.se3 import SE3, SE3np
 from ..optim.ba import BAProblem, bundle_adjust, to_device
 from ..optim.pose_opt import pose_optimization
+from ..optim.vi_pose_opt import vi_pose_optimization_marg
 from ..slam_map.map_state import NO_POINT, MapState
 from ..utils.fetch import fetch, upload
 
@@ -57,6 +65,14 @@ RECENTLY_LOST = 2
 LOST = 3
 
 POSE_OPT_CAP = 2048  # association capacity of a pose solve (static shape)
+
+# Near-fixed anchor information of the VI solve where no covariance-derived
+# prior exists (right after init or relocalization): the reference fixes the
+# anchor vertices (setFixed in PoseInertialOptimizationLastKeyFrame,
+# src/Optimizer.cc:4491); a stiff finite information is the joint solver's
+# equivalent.
+_FIXED_ANCHOR_INFO = np.diag(
+    np.concatenate([np.full(6, 1e6), np.full(3, 1e4), np.full(6, 1e4)])).astype(np.float32)
 
 
 def inv_level_sigma2(n_levels: int = 8, scale: float = 1.2) -> np.ndarray:
@@ -89,6 +105,9 @@ class TrackerConfig:
     min_inliers_local: int = 30  # reference: mnMatchesInliers < 30 -> lost
     max_frames_between_kf: int = 20  # reference mMaxFrames = fps (20 on EuRoC)
     min_frames_between_kf: int = 3  # reference mMinFrames
+    # keep creating keyframes on IMU-predicted poses while RECENTLY_LOST
+    # (mInsertKFsLost, include/Tracking.h:300)
+    insert_kfs_when_lost: bool = True
     kf_tracked_ratio: float = 0.9  # reference thRefRatio for mono
     depth_point_max: float = 40.0  # stereo / RGB-D close-point depth gate (m)
     bf: float = 0.0  # stereo baseline * fx (reference mbf); 0 = no (u, v, uR) rows
@@ -165,6 +184,9 @@ class Tracker:
         # against the keyframe database (Tracking::Relocalization,
         # src/Tracking.cc:3612, from the RECENTLY_LOST branch)
         self.relocalize_fn = None
+        # tracking/imu_frontend.py::ImuFrontend for the inertial sensors
+        self.imu = None
+        self._vi_prior_src = None  # which prior the last VI solve took ("marg" / "kf" / "fixed")
         self.only_tracking = False  # localization mode (mbOnlyTracking)
         self.vo_mode = False  # mbVO analog
         self._dev_feats = None
@@ -193,23 +215,32 @@ class Tracker:
         depth: (F,) metric depth per feature (stereo / RGB-D; <= 0 invalid);
         with it the map initializes from one frame and keyframes spawn close
         points. ur: (F,) right-image u (< 0 monocular), the third residual
-        row of every pose solve when cfg.bf > 0."""
-        if imu_samples is not None:
-            raise NotImplementedError("inertial tracking: ROADMAP item 10")
+        row of every pose solve when cfg.bf > 0. imu_samples: (acc (N, 3),
+        gyro (N, 3), dts (N,)) measured since the previous frame, with an
+        IMU frontend attached."""
         fid = self.frame_id
         self.frame_id += 1
         self._cur_depth = None if depth is None else np.asarray(depth, np.float32)
         self._cur_ur = None if ur is None else np.asarray(ur, np.float32)
         # timestamp sanity (src/Tracking.cc:1822-1858): a backward jump drops
-        # the motion model, a large gap forces the loss path
+        # the motion model and the IMU integration, a large gap forces the
+        # loss path
+        imu = self.imu
         if self.last is not None:
             dt_gap = ts - self.last.ts
             if dt_gap < 0:
+                if imu is not None:
+                    imu.preint_frame = None
+                    imu.preint_kf = None
+                    imu.marg_prior = None
+                    imu._marg_pending = None
                 self.velocity = None
             elif dt_gap > 1.0 and self.state == OK:
                 self.state = RECENTLY_LOST
                 self.lost_frames = self.cfg.recently_lost_budget  # -> LOST next miss
                 self.velocity = None
+        if imu is not None and imu_samples is not None and len(imu_samples[2]):
+            imu.integrate_frame(*imu_samples)
         if self.state == NOT_INITIALIZED:
             if self._cur_depth is not None:
                 T = self._initialize_with_depth(feats, ts, fid)
@@ -275,6 +306,8 @@ class Tracker:
         if self.init_frame is None:
             if n_valid >= self.cfg.min_matches_init:
                 self.init_frame = self._new_init_frame(feats, ts, fid)
+                if self.imu is not None:
+                    self.imu.preint_kf = None  # the interval spans the init pair only
             return None
         f0 = self.init_frame.features
         d0, d1 = features_to_device(f0, self.device), self._feats_dev(feats)
@@ -285,6 +318,8 @@ class Tracker:
             # reference: reset the initializer on too few matches
             self.init_frame = (self._new_init_frame(feats, ts, fid)
                                if n_valid >= self.cfg.min_matches_init else None)
+            if self.imu is not None:
+                self.imu.preint_kf = None
             return None
         # unit-plane coordinates of the matched pairs
         r0 = unproject(self.cam, d0.uv)
@@ -366,6 +401,8 @@ class Tracker:
         self.state = OK
         self.frames_since_kf = 0
         self.velocity = None
+        if self.imu is not None:  # the two keyframes open the inertial chain
+            self.imu.on_initial_keyframes(k0, k1, self.init_frame.ts, ts, m)
         if self.on_keyframe is not None:
             self.on_keyframe(k0)
             self.on_keyframe(k1)
@@ -395,7 +432,13 @@ class Tracker:
         cfg = self.cfg
         m = self.map
         inv_s2_levels = cfg.inv_level_sigma2()
-        T_pred = self.velocity @ self.last.T_cw if self.velocity is not None else self.last.T_cw
+        imu = self.imu
+        T_pred = None
+        if imu is not None and imu.initialized:
+            T_pred = imu.predict_pose(self.last.T_cw)
+        if T_pred is None:
+            T_pred = (self.velocity @ self.last.T_cw if self.velocity is not None
+                      else self.last.T_cw)
         cap = len(feats.valid)
         obs_mp = np.full(cap, NO_POINT, np.int32)
         level = np.asarray(feats.level)
@@ -434,6 +477,9 @@ class Tracker:
                 T_cur, obs_mp = rel
                 ok_track = True
                 self.velocity = None
+                if imu is not None:  # a relocalized pose breaks the prior's anchoring
+                    imu.marg_prior = None
+                    imu._marg_pending = None
         if not ok_track and self.only_tracking:
             # mbVO: frame-to-frame odometry on depth points (none in mono)
             T_vo, ok_vo = self._track_vo(feats, T_pred)
@@ -441,13 +487,27 @@ class Tracker:
                 self.vo_mode = True
                 self.lost_frames = 0
                 self.state = OK
-                return self._commit_frame(self._record(feats, T_vo, obs_mp, ts, fid))
+                return self._commit_frame(self._record(feats, T_vo, obs_mp, ts, fid),
+                                          imu_velocity=True)
         if not ok_track:
             self.lost_frames += 1
             if self.state == OK:
                 self.state = RECENTLY_LOST
             elif self.lost_frames > cfg.recently_lost_budget:
                 self.state = LOST
+            # IMU dead reckoning bridges a short visual blackout: the
+            # predicted pose is published while RECENTLY_LOST (Track()'s
+            # RECENTLY_LOST branch, src/Tracking.cc:1990-2016)
+            if (imu is not None and imu.initialized and self.state == RECENTLY_LOST
+                    and imu.preint_frame is not None):
+                rec = self._record(feats, T_pred, obs_mp, ts, fid)
+                if self.last is not None:
+                    # a marginal from a failed solve is anchored at a rejected state
+                    imu._marg_pending = None
+                    imu.commit_frame_velocity(self.last.T_cw, T_pred, ts - self.last.ts)
+                self.last = rec
+                self.frames_since_kf += 1
+                return T_pred
             return None
 
         # --- TrackLocalMap
@@ -458,17 +518,25 @@ class Tracker:
             # frozen map, thinning overlap: stay alive in VO mode
             self.vo_mode = n_inl < cfg.min_inliers_track
             self.lost_frames = 0
-            return self._commit_frame(rec)
+            return self._commit_frame(rec, imu_velocity=True)
         if n_inl < cfg.min_inliers_local:
             self.state = RECENTLY_LOST
             self.lost_frames += 1
             if self.lost_frames > cfg.recently_lost_budget:
                 self.state = LOST
-            return self._commit_frame(rec)  # keep the motion model alive
+            self._commit_frame(rec)  # keep the motion model alive
+            # InsertKFsWhenLost: with an initialized IMU the predicted pose is
+            # still trusted, so the map keeps growing while visually weak
+            if (cfg.insert_kfs_when_lost and imu is not None and imu.initialized
+                    and self.state == RECENTLY_LOST
+                    and self.frames_since_kf >= cfg.min_frames_between_kf
+                    and int((obs_mp != NO_POINT).sum()) >= 15):
+                self._create_keyframe(rec)
+            return T_cur
         self.state = OK
         self.lost_frames = 0
         self.vo_mode = False
-        self._commit_frame(rec)
+        self._commit_frame(rec, imu_velocity=True)
         if self._need_new_keyframe(n_inl):
             self._create_keyframe(rec)
         return T_cur
@@ -480,7 +548,9 @@ class Tracker:
         """This frame's uR of the given features, or None (monocular)."""
         return None if self._cur_ur is None else self._cur_ur[feat_idx]
 
-    def _commit_frame(self, rec: FrameRecord):
+    def _commit_frame(self, rec: FrameRecord, imu_velocity: bool = False):
+        if imu_velocity and self.imu is not None and self.last is not None:
+            self.imu.commit_frame_velocity(self.last.T_cw, rec.T_cw, rec.ts - self.last.ts)
         self._update_motion_model(rec)
         self.last = rec
         self.frames_since_kf += 1
@@ -512,23 +582,72 @@ class Tracker:
     def _pose_opt(self, T0: SE3np, pts_w, uv, inv_s2, ur=None):
         """Pose solve on the device; associations padded to POSE_OPT_CAP.
         ur: (N,) right-image u (< 0 monocular) for (u, v, uR) rows, used
-        when cfg.bf > 0 (EdgeStereoOnlyPose)."""
+        when cfg.bf > 0 (EdgeStereoOnlyPose). Once the IMU is initialized
+        it is the visual-inertial solve against the previous state with its
+        15-D prior (PoseInertialOptimizationLastFrame, src/Optimizer.cc:4875),
+        whose marginal becomes the next frame's prior."""
         n = min(len(pts_w), POSE_OPT_CAP)
         valid = np.zeros(POSE_OPT_CAP, bool)
         valid[:n] = True
         stereo = ur is not None and self.cfg.bf > 0
         ur_p = _pad1(np.asarray(ur, np.float32), POSE_OPT_CAP, -1.0) if stereo else None
-        res = pose_optimization(
-            SE3(self._up(T0.R, np.float32), self._up(T0.t, np.float32)), self.cam,
-            self._up(_pad1(pts_w, POSE_OPT_CAP), np.float32),
-            self._up(_pad1(uv, POSE_OPT_CAP), np.float32),
-            self._up(_pad1(inv_s2, POSE_OPT_CAP, 1.0), np.float32),
-            valid=self._up(valid),
-            ur_obs=self._up(ur_p) if stereo else None,
-            bf=self._up(np.float32(self.cfg.bf)).reshape(()) if stereo else None,
-        )
+        T0_d = SE3(self._up(T0.R, np.float32), self._up(T0.t, np.float32))
+        pts_d = self._up(_pad1(pts_w, POSE_OPT_CAP), np.float32)
+        uv_d = self._up(_pad1(uv, POSE_OPT_CAP), np.float32)
+        is2_d = self._up(_pad1(inv_s2, POSE_OPT_CAP, 1.0), np.float32)
+        ur_d = self._up(ur_p) if stereo else None
+        bf_d = self._up(np.float32(self.cfg.bf)).reshape(()) if stereo else None
+        imu = self.imu
+        if (imu is not None and imu.initialized and imu.preint_frame is not None
+                and self.last is not None):
+            pre = imu.preint_frame
+            # the previous BODY state through the rig extrinsics (ImuCamPose,
+            # include/G2oTypes.h:60-128)
+            R_bc = np.asarray(imu.cfg.R_bc, np.float32)
+            t_bc = np.asarray(imu.cfg.t_bc, np.float32)
+            R_cw_prev, t_cw_prev, v_prev, H_prior, self._vi_prior_src = self._vi_prior_for_frame()
+            R_bw_prev = R_bc @ R_cw_prev
+            t_bw_prev = R_bc @ t_cw_prev + t_bc
+            res = vi_pose_optimization_marg(
+                T0_d, self.cam, pts_d, uv_d, is2_d, self._up(valid),
+                self._up(R_bw_prev.T, np.float32), self._up(-R_bw_prev.T @ t_bw_prev, np.float32),
+                self._up(v_prev, np.float32), self._up(H_prior, np.float32),
+                pre.dT, pre.dR, pre.dV, pre.dP, pre.JRg, pre.JVg, pre.JVa, pre.JPg, pre.JPa,
+                C=pre.C, R_bc=self._up(R_bc), t_bc=self._up(t_bc), ur_obs=ur_d, bf=bf_d)
+            T, inl, v_w, H_marg = fetch((res.T_cw, res.inliers, res.v_w, res.H_marg))
+            imu._pred_v = v_w
+            imu._marg_pending = H_marg
+            return SE3np(*T), inl[: len(pts_w)]
+        res = pose_optimization(T0_d, self.cam, pts_d, uv_d, is2_d, valid=self._up(valid),
+                                ur_obs=ur_d, bf=bf_d)
         res = fetch((res.T_cw, res.inliers))
         return SE3np(*res[0]), res[1][: len(pts_w)]
+
+    def _vi_prior_for_frame(self):
+        """The anchor state and 15-D information of the VI frame solve:
+        (R_cw_prev, t_cw_prev, v_prev, H_prior, source), source
+        - "marg": the previous frame's state with the Schur marginal of its
+          solve (PoseInertialOptimizationLastFrame, src/Optimizer.cc:4875);
+        - "kf": the first frame after a keyframe, anchored on the keyframe's
+          CURRENT map state (the mapper's VI refinement included) with the
+          posterior captured when the frame became that keyframe
+          (PoseInertialOptimizationLastKeyFrame, :4491);
+        - "fixed": no usable prior (after init or relocalization): the anchor
+          held near-fixed, as the reference's setFixed."""
+        imu = self.imu
+        m = self.map
+        if imu.marg_prior is not None:
+            return (self.last.T_cw.R.astype(np.float32), self.last.T_cw.t.astype(np.float32),
+                    np.asarray(imu.v_w, np.float32), imu.marg_prior, "marg")
+        k = self.ref_kf
+        if k >= 0 and m.kf_valid[k] and int(m.kf_frame_id[k]) == self.last.frame_id:
+            kp = imu.kf_prior
+            anchored = kp is not None and kp[0] == k and kp[1] == int(m.kf_frame_id[k])
+            return (m.kf_R[k].astype(np.float32), m.kf_t[k].astype(np.float32),
+                    m.kf_vel[k].astype(np.float32), kp[2] if anchored else _FIXED_ANCHOR_INFO,
+                    "kf" if anchored else "fixed")
+        return (self.last.T_cw.R.astype(np.float32), self.last.T_cw.t.astype(np.float32),
+                np.asarray(imu.v_w, np.float32), _FIXED_ANCHOR_INFO, "fixed")
 
     def _track_reference_kf(self, feats: Features, T_pred):
         """TrackReferenceKeyFrame (src/Tracking.cc:2723): match against the
@@ -674,7 +793,14 @@ class Tracker:
         if self.only_tracking or self.ref_kf < 0:
             return False
         n_ref = len(self.map.observations_of_kf(self.ref_kf)[0])
-        c1 = self.frames_since_kf >= self.cfg.max_frames_between_kf
+        max_gap = self.cfg.max_frames_between_kf
+        if self.imu is not None:
+            # inertial rule: a keyframe at least every 0.5 s keeps the
+            # preintegration chain short and, before init, reaches the
+            # 10-keyframe init gate quickly (NeedNewKeyFrame's
+            # t - mpLastKeyFrame->mTimeStamp >= 0.5, src/Tracking.cc:3067 region)
+            max_gap = max(1, max_gap // 2)
+        c1 = self.frames_since_kf >= max_gap
         c2 = n_inl < self.cfg.kf_tracked_ratio * max(n_ref, 1)
         if self.mapper_busy_fn is not None and self.mapper_busy_fn():
             # backlogged mapper: only force a keyframe when tracking starves
@@ -692,6 +818,9 @@ class Tracker:
         m.kf_parent[k] = self.ref_kf if (self.ref_kf >= 0 and m.kf_valid[self.ref_kf]) else -1
         if rec.depth is not None:
             self._spawn_depth_points(k, rec)
+        if self.imu is not None:
+            self.imu.on_keyframe(k, rec.ts, m)
+            self.imu.maybe_initialize(m, self)
         self.ref_kf = k
         self.frames_since_kf = 0
         if self.on_keyframe is not None:

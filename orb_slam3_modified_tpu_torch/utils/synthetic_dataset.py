@@ -221,3 +221,80 @@ def ring_trajectory(n_frames: int, fps: float = 20.0, radius: float = 4.0, heigh
         ts.append(-R_cw @ p)
     return SE3(torch.from_numpy(np.stack(Rs).astype(np.float32)),
                torch.from_numpy(np.stack(ts).astype(np.float32)))
+
+
+def orbit_poses(n_frames: int, fps: float = 20.0, radius: float = 3.0, sweep: float = np.pi / 4,
+                height: float = 0.4, ring: bool = False):
+    """The camera poses of write_euroc_sequence's frames: frame i at t = i /
+    fps on orbit_state(period = n_frames / fps); SE3 (F,) of float32 CPU
+    tensors."""
+    period = n_frames / fps
+    Rs, ts = [], []
+    for i in range(n_frames):
+        R_cw, p, _, _ = orbit_state(i / fps, period, radius, sweep, height, ring)
+        Rs.append(R_cw)
+        ts.append(-R_cw @ p)
+    return SE3(torch.from_numpy(np.stack(Rs).astype(np.float32)),
+               torch.from_numpy(np.stack(ts).astype(np.float32)))
+
+
+def imu_stream(n_frames: int, fps: float = 20.0, seed: int = 0, radius: float = 3.0,
+               sweep: float = np.pi / 4, height: float = 0.4, imu_rate: float = 200.0,
+               ring: bool = False, T_bc=None, gyro_noise_std: float = 0.0,
+               acc_noise_std: float = 0.0, gyro_bias=(0.0, 0.0, 0.0), acc_bias=(0.0, 0.0, 0.0)):
+    """The body-frame IMU stream that write_euroc_sequence(with_imu=True)
+    writes to mav0/imu0/data.csv, in memory: (ts (S,) float64 seconds, gyro
+    (S, 3), acc (S, 3)) float64, from the same finite differences of the
+    orbit (gravity -9.81 z), the rig extrinsics T_bc (x_b = R_bc x_c + t_bc,
+    lever arm included; None = identity), white noise and constant biases.
+    The CSV stores nanosecond timestamps and 9 decimals; these are the
+    unrounded values."""
+    period = n_frames / fps
+    g_w = np.array([0.0, 0.0, -9.81])
+    R_bc = np.eye(3) if T_bc is None else np.asarray(T_bc, np.float64)[:3, :3]
+    t_bc = np.zeros(3) if T_bc is None else np.asarray(T_bc, np.float64)[:3, 3]
+    t_cb = -R_bc.T @ t_bc  # body origin in the camera frame
+    b_g = np.asarray(gyro_bias, np.float64)
+    b_a = np.asarray(acc_bias, np.float64)
+    noise_rng = np.random.default_rng(seed + 7919)
+    dt_fd = 1e-4  # finite-difference step (rotation rate, lever arm)
+
+    def body_pos(tau):
+        R_cw, p_c, _, _ = orbit_state(tau, period, radius, sweep, height, ring)
+        return p_c + R_cw.T @ t_cb, R_cw
+
+    n_samples = int((n_frames - 1) / fps * imu_rate) + 1
+    ts = np.empty(n_samples)
+    gyro = np.empty((n_samples, 3))
+    acc = np.empty((n_samples, 3))
+    for j in range(n_samples):
+        tau = j / imu_rate
+        p_b, R_cw = body_pos(tau)
+        p_bp, _ = body_pos(tau + dt_fd)
+        p_bm, _ = body_pos(tau - dt_fd)
+        a_b_w = (p_bp - 2 * p_b + p_bm) / (dt_fd * dt_fd)
+        R_cw2, _, _, _ = orbit_state(tau + dt_fd, period, radius, sweep, height, ring)
+        dR = R_cw @ R_cw2.T
+        w_c = np.array([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]]) / (
+            2.0 * dt_fd)
+        f_b = R_bc @ R_cw @ (a_b_w - g_w)  # specific force in the body frame
+        ts[j] = tau
+        gyro[j] = R_bc @ w_c + b_g + noise_rng.normal(0.0, gyro_noise_std, 3)
+        acc[j] = f_b + b_a + noise_rng.normal(0.0, acc_noise_std, 3)
+    return ts, gyro, acc
+
+
+def imu_between(ts, gyro, acc, t0, t1):
+    """The samples of an imu_stream in (t0, t1] as the tracker takes them:
+    (acc (N, 3), gyro (N, 3), dts (N,)) float32, dts measured from the
+    previous sample (from t0 for the first), as the EuRoC reader and
+    bench.py's imu_tuple hand them over. t0 None (the first frame): every
+    sample up to t1, the first with dt 0."""
+    if t0 is None:
+        sel = ts <= t1 + 1e-9
+        t0 = ts[sel][0] if sel.any() else t1
+    else:
+        sel = (ts > t0 + 1e-9) & (ts <= t1 + 1e-9)
+    tss = ts[sel]
+    dts = np.maximum(np.diff(np.concatenate([[t0], tss])), 0.0)
+    return (acc[sel].astype(np.float32), gyro[sel].astype(np.float32), dts.astype(np.float32))

@@ -395,8 +395,8 @@ def test_pose_graph_matches_reference(case):
 def test_commit_whole_map_solve_matches_reference():
     """A whole-map solve written back, as the post-loop global BA commits it:
     every keyframe and point of the map in the solve (the port's global BA
-    runs inline, so none is created while it runs and the reference's
-    spanning-tree propagation has nothing to carry)."""
+    runs inline, so none is created while it runs and the spanning-tree
+    propagation, ported with the inertial solves, has nothing to carry)."""
     from orb_slam3_modified_tpu.slam_map.commit import commit_whole_map_solve as jcommit
     from orb_slam3_modified_tpu.slam_map.map_state import MapState as JMapState
     from orb_slam3_modified_tpu_torch.slam_map.commit import commit_whole_map_solve
@@ -424,7 +424,9 @@ def test_commit_whole_map_solve_matches_reference():
     pts = rng.normal(size=(40, 3))
     jcommit(maps[0], kfs, maps[0].kf_frame_id[kfs].copy(), mps, R, t, pts,
             maps[0].kf_R[kfs].copy(), maps[0].kf_t[kfs].copy())
-    commit_whole_map_solve(maps[1], kfs, mps, R.copy(), t.copy(), pts.copy())
+    commit_whole_map_solve(maps[1], kfs, maps[1].kf_frame_id[kfs].copy(), mps, R.copy(),
+                           t.copy(), pts.copy(), maps[1].kf_R[kfs].copy(),
+                           maps[1].kf_t[kfs].copy())
     for f in ("kf_R", "kf_t", "mp_pos"):
         _close(getattr(maps[1], f), getattr(maps[0], f), 1e-6)
     _close(maps[1].kf_t[:8], t, 1e-6)

@@ -137,17 +137,25 @@ def test_anchor_falls_back_to_a_covisible_keyframe():
 
 
 def test_system_refuses_what_later_slices_bring():
-    """The inertial sensors raise instead of running without the IMU (ROADMAP
-    item 10); monocular, stereo and RGB-D build. Loop closing, ported since,
-    is on by default and builds the closer and the relocalization hook."""
+    """The inertial sensors build (tracker, mapper and closer share one IMU
+    frontend; IMU_MONOCULAR keeps the monocular keyframe ratio, the other two
+    the depth sensors'), but their chunked frontend, and imu_samples on the
+    chunked frontend, still raise (ROADMAP item 10); monocular, stereo and
+    RGB-D build. Loop closing, ported since, is on by default and builds the
+    closer and the relocalization hook; its inertial global BA runs."""
     from orb_slam3_modified_tpu_torch.system.slam_system import (
         IMU_MONOCULAR, IMU_RGBD, IMU_STEREO, RGBD, STEREO, SlamSystem, SystemConfig,
     )
 
     cam = convert.camera(JCAM, device="cpu")
     for sensor in (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD):
-        with pytest.raises(ValueError, match="ROADMAP item 10"):
-            SlamSystem(SystemConfig(cam=cam, sensor=sensor, device="cpu"))
+        slam = SlamSystem(SystemConfig(cam=cam, sensor=sensor, device="cpu"))
+        imu = slam.tracker.imu
+        assert imu is not None and slam.mapper.imu is imu and slam.closer.imu is imu
+        assert slam.closer.cfg.fix_scale and imu.cfg.mono == (sensor == IMU_MONOCULAR)
+        assert slam.tcfg.kf_tracked_ratio == (0.9 if sensor == IMU_MONOCULAR else 0.75)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+            slam.make_chunked_frontend(async_mapping=False)
     for sensor in (STEREO, RGBD):  # ORB-SLAM3's keyframe ratio for depth sensors
         tcfg = SlamSystem(SystemConfig(cam=cam, sensor=sensor, bf=50.0, use_loop_closing=False,
                                        device="cpu")).tcfg
@@ -159,8 +167,11 @@ def test_system_refuses_what_later_slices_bring():
     fe = slam.make_chunked_frontend(async_mapping=False)
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         fe.track_image(np.zeros((480, 752), np.uint8), 0.0, imu_samples=([], [], []))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        slam.closer._global_vi_ba()
+    # without an IMU the closer's inertial GBA is never routed to; with one
+    # whose chain is too short it declines (False) and the visual GBA runs
+    slam.closer.imu = slam.tracker.imu = SlamSystem(
+        SystemConfig(cam=cam, sensor=IMU_MONOCULAR, device="cpu")).tracker.imu
+    assert slam.closer._global_vi_ba() is False
 
 
 def test_system_entry_point_defaults_to_cuda():
