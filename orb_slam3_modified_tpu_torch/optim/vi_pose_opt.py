@@ -11,18 +11,13 @@ vi_pose_optimization_marg is the per-frame solve once the IMU is
 initialized: the {previous, current} 30-D state, the previous one held by a
 15-D prior, and after the solve the Schur marginal H_marg that becomes the
 next frame's prior (Marginalize, src/Optimizer.cc:2960). The reference
-differentiates the whitened residuals with jax.jacfwd, the visual block
-over its 6 live dimensions only; here the same residual functions take a
-batch of increments and their jacobians are float64 central differences
-(optim/jacobian.py), one batched evaluation per block instead of
-functorch's per-op host cost. The damped Gauss-Newton loop has a fixed
-count and takes every accept / reject as torch.where, so a solve reads
-nothing back.
-
-vi_pose_optimization, the 15-D solve against a fixed previous state, is
-off the tracker's path and keeps torch.func.jacfwd; single vectors go
-through so3 as (1, 3) batches there, because under jacfwd torch promotes a
-0-dim dual combined with a Python float to float64.
+differentiates the whitened residuals with jax.jacfwd (the marginal
+solve's visual block over its 6 live dimensions only); here the same
+residual functions take a batch of increments and their jacobians are
+float64 central differences (optim/jacobian.py), one batched evaluation
+per block instead of functorch's per-op host cost. Both solves do so. The
+damped Gauss-Newton loops have a fixed count and take every accept /
+reject as torch.where, so a solve reads nothing back.
 """
 from __future__ import annotations
 
@@ -66,14 +61,6 @@ def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 
 
-def _exp3(w):
-    return so3.exp(w[None])[0]
-
-
-def _log3(R):
-    return so3.log(R[None])[0]
-
-
 def _body_from_cam(R_cw, t_cw, R_bc, t_bc):
     """(R_wb, p_wb) of the body from the camera pose T_cw and the
     extrinsics x_b = R_bc x_c + t_bc (ImuCamPose, include/G2oTypes.h:60-128)."""
@@ -105,50 +92,69 @@ def vi_pose_optimization(T_cw0: SE3, cam: Camera, pts_w, uv_obs, inv_s2, valid, 
     through T_bc (None: the identity rig)."""
     if v_init is None:
         v_init = v_prev
+    dtype = pts_w.dtype
     R_bc = _eye(3, pts_w) if R_bc is None else R_bc
     t_bc = torch.zeros_like(pts_w[0]) if t_bc is None else t_bc
-    g = gravity_vec(pts_w)
     sq_is2 = torch.sqrt(torch.clamp(inv_s2, min=1e-9))
 
-    def unpack(x):
-        T = se3.exp(x[None, :6])
-        T = SE3(T.R[0], T.t[0]) @ T_cw0
-        return T, v_init + x[6:9], x[9:12], x[12:15]
+    def residual_fns(dt):
+        """(unpack, residuals) with the constants in dtype dt; both take a
+        batch of increments (B, 15): float64 for the value and the
+        central-difference jacobian, float32 for the result."""
+        R0, t0, v0, vp, Rp, pp, R_bc_, t_bc_, pts, uvo, sq, dR_, dV_, dP_ = (
+            a.to(dt) for a in (T_cw0.R, T_cw0.t, v_init, v_prev, R_wb_prev, p_wb_prev, R_bc,
+                               t_bc, pts_w, uv_obs, sq_is2, dR, dV, dP))
+        JRg_, JVg_, JVa_, JPg_, JPa_ = (a.to(dt) for a in (JRg, JVg, JVa, JPg, JPa))
+        g = gravity_vec(pts)
+        dT_ = torch.as_tensor(dT, dtype=dt, device=pts.device)
 
-    def residuals(x):
-        T, v, dbg, dba = unpack(x)
-        pc = T.apply(pts_w)
-        r = (project(cam, pc) - uv_obs) * sq_is2[:, None]
-        chi2 = torch.sum(r * r, dim=-1)
-        w_rob = torch.sqrt(huber_weight(chi2, DELTA_MONO)) if use_huber else 1.0
-        w = valid.to(r.dtype) * (pc[..., 2] > 0.05)
-        r_vis = (r * (w * w_rob)[:, None]).reshape(-1)
-        R_wb, p_wb = _body_from_cam(T.R, T.t, R_bc, t_bc)
-        dR_c = dR @ _exp3(JRg @ dbg)
-        dV_c = dV + JVg @ dbg + JVa @ dba
-        dP_c = dP + JPg @ dbg + JPa @ dba
-        RiT = R_wb_prev.T
-        r_R = _log3(dR_c.T @ RiT @ R_wb)
-        r_v = RiT @ (v - v_prev - g * dT) - dV_c
-        r_p = RiT @ (p_wb - p_wb_prev - v_prev * dT - 0.5 * g * dT * dT) - dP_c
-        r_inert = torch.cat([r_R, r_v, r_p]) * inertial_weight
-        r_bias = torch.cat([dbg, dba]) * (bias_prior ** 0.5) * dT
-        return torch.cat([r_vis, r_inert, r_bias])
+        def unpack(x):
+            T = se3.exp(x[:, :6]) @ SE3(R0, t0)
+            return T, v0 + x[:, 6:9], x[:, 9:12], x[:, 12:15]
 
-    x = torch.zeros(15, dtype=pts_w.dtype, device=pts_w.device)
-    lam = torch.full((), 1e-3, dtype=pts_w.dtype, device=pts_w.device)
+        def residuals(x):
+            T, v, dbg, dba = unpack(x)
+            pc = pts @ T.R.transpose(-1, -2) + T.t[:, None]
+            r = (project(cam, pc) - uvo) * sq[:, None]
+            chi2 = torch.sum(r * r, dim=-1)
+            w_rob = torch.sqrt(huber_weight(chi2, DELTA_MONO)) if use_huber else 1.0
+            w = valid.to(dt) * (pc[..., 2] > 0.05)
+            r_vis = (r * (w * w_rob)[..., None]).reshape(x.shape[0], -1)
+            R_wb, p_wb = _body_from_cam(T.R, T.t, R_bc_, t_bc_)
+            dR_c = dR_ @ so3.exp(dbg @ JRg_.T)
+            dV_c = dV_ + dbg @ JVg_.T + dba @ JVa_.T
+            dP_c = dP_ + dbg @ JPg_.T + dba @ JPa_.T
+            RiT = Rp.T
+            r_R = so3.log(dR_c.transpose(-1, -2) @ RiT @ R_wb)
+            r_v = (v - vp - g * dT_) @ RiT.T - dV_c
+            r_p = (p_wb - pp - vp * dT_ - 0.5 * g * dT_ * dT_) @ RiT.T - dP_c
+            r_inert = torch.cat([r_R, r_v, r_p], dim=-1) * inertial_weight
+            r_bias = torch.cat([dbg, dba], dim=-1) * (bias_prior ** 0.5) * dT_
+            return torch.cat([r_vis, r_inert, r_bias], dim=-1)
+
+        return unpack, residuals
+
+    unpack = residual_fns(dtype)[0]
+    residuals64 = residual_fns(torch.float64)[1]
+    # each iteration evaluates the residuals and their jacobian once, at the
+    # candidate: its cost decides the step, and an accepted candidate's
+    # (r, J) linearizes the next iteration
+    x = torch.zeros(15, dtype=dtype, device=pts_w.device)
+    lam = torch.full((), 1e-3, dtype=dtype, device=pts_w.device)
     eye = _eye(15, pts_w)
-    jac = torch.func.jacfwd(residuals)
+    r, J = value_and_central_jacobian(residuals64, x)
     for _ in range(iters):
-        r = residuals(x)
-        J = jac(x)
         H = J.T @ J
         Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye
         x_new = x - torch.linalg.solve_ex(Hd, J.T @ r)[0]
-        good = torch.sum(residuals(x_new) ** 2) < torch.sum(r * r)
+        r_new, J_new = value_and_central_jacobian(residuals64, x_new)
+        good = torch.sum(r_new * r_new) < torch.sum(r * r)
         x = torch.where(good, x_new, x)
+        r = torch.where(good, r_new, r)
+        J = torch.where(good, J_new, J)
         lam = torch.where(good, lam * 0.5, lam * 4.0)
-    T, v, dbg, dba = unpack(x)
+    T, v, dbg, dba = unpack(x[None])
+    T, v, dbg, dba = SE3(T.R[0], T.t[0]), v[0], dbg[0], dba[0]
     pc = T.apply(pts_w)
     chi2 = torch.sum((project(cam, pc) - uv_obs) ** 2, dim=-1) * inv_s2
     inl = valid & (chi2 < CHI2_MONO) & (pc[..., 2] > 0)

@@ -17,16 +17,25 @@ warm-up, the async mapper drained, then the rest. Scenes:
   sensor RGBD, depth_scale 1, the same bf as a virtual baseline,
   th_far_points 0, chunk 16.
 
-Two inertial scenes run frame by frame through the per-frame entry points
-(no chunked frontend), loop closing on, the staged IMU init synchronous:
+Three inertial scenes run frame by frame through the per-frame entry
+points (no chunked frontend), loop closing on, the staged IMU init
+synchronous:
 
-- mono_inertial: bench.py's VI scene (main_vi("vi")): a 512x384 pinhole
-  (330, 330, 256, 192), the 400-frame quarter orbit of write_euroc_sequence
-  (radius 4 m, sweep pi/2, height 0.4) at 20 frames/s, 1024 features, and
-  the noise-free 200 Hz IMU stream of write_euroc_sequence(with_imu=True)
-  with identity extrinsics (the port's utils/synthetic_dataset.py::
-  imu_stream); SlamSystem(sensor=IMU_MONOCULAR).track_monocular_inertial,
-  160 warm-up frames as bench.py's VI run;
+- mono_inertial: tests/test_e2e_inertial.py's course at full width (a
+  752x480 EuRoC camera on a 1.5 m circle at 0.8 rad/s under a ceiling of
+  5000 points, 1024 features a frame, the noise-free 200 Hz IMU), 400
+  frames, 160 warm-up, the frames made by chip_smoke.py's ceiling_course;
+  SlamSystem(sensor=IMU_MONOCULAR).track_features(..., imu_samples=).
+  --draws k ... runs it once per draw set: the two-view initializer's key
+  jax.random.fold_in(PRNGKey(frame id), k), k = 0 the reference's own;
+- mono_inertial_image: bench.py's VI scene (main_vi("vi")): a 512x384
+  pinhole (330, 330, 256, 192), write_euroc_sequence's quarter orbit
+  (radius 4 m, sweep pi/2 over 400 frames, height 0.4) at 20 frames/s cut
+  to its first 200 frames, 1024 features, and the noise-free 200 Hz IMU
+  stream of write_euroc_sequence(with_imu=True) with identity extrinsics
+  (the port's utils/synthetic_dataset.py::imu_stream);
+  SlamSystem(sensor=IMU_MONOCULAR).track_monocular_inertial, 80 warm-up
+  frames;
 - stereo_inertial: the stereo scene's 752x480 pair (0.110074 m baseline)
   on the same orbit law (radius 4 m, sweep pi/2 over 400 frames), cut to
   its first 200 frames, with its IMU stream; track_stereo(...,
@@ -34,7 +43,8 @@ Two inertial scenes run frame by frame through the per-frame entry points
 
 Their lines add the IMU's stage, the frame the IMU was first initialized
 at, and the scale-aligned ATE (and its scale) of the frames tracked from
-then on ("post-init").
+then on ("post-init") and of those among them after the warm-up
+("timed").
 
 Prints one JSON line per scene with the tracked / timed frames, keyframes,
 map points, maps, the closer's counts (loops, merges, global BAs),
@@ -43,7 +53,8 @@ whole trajectory and of the keyframes of the largest map, for comparison with th
 counts on the card. No time is printed: this runs on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/reference_system_counts.py \
-        [system|loop|stereo|rgbd|mono_inertial|stereo_inertial ...] [--frames N]
+        [system|loop|stereo|rgbd|mono_inertial|mono_inertial_image|stereo_inertial ...] \
+        [--frames N] [--draws k ...]
 """
 import argparse
 import json
@@ -59,7 +70,8 @@ import numpy as np  # noqa: E402
 
 N_WARM = 64
 SCENES = {"system": 16, "loop": 8, "stereo": 16, "rgbd": 16}  # scene -> chunk
-VI_SCENES = {"mono_inertial": (400, 160), "stereo_inertial": (200, 64)}  # frames, warm-up
+VI_SCENES = {"mono_inertial": (400, 160), "mono_inertial_image": (200, 80),
+             "stereo_inertial": (200, 64)}  # frames, warm-up
 VI_CAM = (330.0, 330.0, 256.0, 192.0, 512, 384)  # bench.py's main_vi camera
 FX = 458.654
 BASELINE_M = 0.110074137800478  # configs/euroc_stereo.yaml, Stereo.T_c1_c2 x
@@ -98,8 +110,8 @@ def scene_frames(scene, n_frames=400):
 
 def vi_scene(scene):
     """(frames, right images or None, SE3 of the true poses, imu_stream
-    (ts, gyro, acc), camera (fx, fy, cx, cy, w, h)) of an inertial scene, as
-    chip_smoke.py renders it."""
+    (ts, gyro, acc), camera (fx, fy, cx, cy, w, h)) of an inertial image
+    scene, as chip_smoke.py renders it."""
     from orb_slam3_modified_tpu_torch.cameras import Camera as TCamera
     from orb_slam3_modified_tpu_torch.lie.se3 import SE3
     from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import (
@@ -108,15 +120,12 @@ def vi_scene(scene):
 
     n, _ = VI_SCENES[scene]
     orbit = dict(fps=20.0, radius=4.0, sweep=np.pi / 2)
-    # the orbit law of 400 frames; stereo_inertial keeps its first n
+    # the orbit law of 400 frames, cut to the scene's first n
     T_all = orbit_poses(400, **orbit)
     T_all = SE3(T_all.R[:n], T_all.t[:n])
     imu = imu_stream(400, **orbit)
     tex = make_texture(0, 96, 1024)
-    if scene == "mono_inertial":
-        intr = VI_CAM
-    else:
-        intr = (FX, 457.296, 367.215, 248.375, 752, 480)
+    intr = VI_CAM if scene == "mono_inertial_image" else (FX, 457.296, 367.215, 248.375, 752, 480)
     tcam = TCamera.pinhole(*intr[:4], width=intr[4], height=intr[5], device="cpu")
     with np.errstate(invalid="ignore"):  # rays parallel to the plane
         if scene == "stereo_inertial":
@@ -127,19 +136,43 @@ def vi_scene(scene):
     return frames, right, T_all, imu, intr
 
 
-def run_vi(scene):
+def run_vi(scene, draws=0):
+    from unittest import mock
+
+    import jax.numpy as jnp
+
     import orb_slam3_modified_tpu  # noqa: F401  (precision config)
     from orb_slam3_modified_tpu.cameras import Camera
     from orb_slam3_modified_tpu.eval.ate import ate_rmse
-    from orb_slam3_modified_tpu.features.extractor import ExtractorConfig
+    from orb_slam3_modified_tpu.features.extractor import ExtractorConfig, Features
     from orb_slam3_modified_tpu.system.slam_system import (
         IMU_MONOCULAR, IMU_STEREO, SlamSystem, SystemConfig,
     )
+    from orb_slam3_modified_tpu.tracking import tracker as tracker_mod
     from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import imu_between
 
-    frames, right, T_all, (its, igyro, iacc), intr = vi_scene(scene)
     n, n_warm = VI_SCENES[scene]
+    course = scene == "mono_inertial"
+    if course:
+        from chip_smoke import ceiling_course
+        from orb_slam3_modified_tpu_torch.cameras import Camera as TCamera
+
+        intr = (FX, 457.296, 367.215, 248.375, 752, 480)
+        frames = ceiling_course(TCamera.pinhole(*intr[:4], width=intr[4], height=intr[5],
+                                                device="cpu"), n, 1024)
+        gt = {f: frames[f][1] for f in range(n)}
+        right = None
+    else:
+        frames, right, T_all, (its, igyro, iacc), intr = vi_scene(scene)
+        R, t = T_all.R.numpy(), T_all.t.numpy()
+        gt = {f: -R[f].T @ t[f] for f in range(n)}
     stereo = right is not None
+    two_views = tracker_mod.reconstruct_two_views
+    stack = mock.patch.object(  # draw set k: the key folded with k (k = 0: unchanged)
+        tracker_mod, "reconstruct_two_views",
+        lambda x0, x1, ok, focal, key, *a, **kw: two_views(
+            x0, x1, ok, focal, jax.random.fold_in(key, draws) if draws else key, *a, **kw))
+    stack.start()
     slam = SlamSystem(SystemConfig(
         cam=Camera.pinhole(*intr[:4], width=intr[4], height=intr[5]),
         sensor=IMU_STEREO if stereo else IMU_MONOCULAR, feat_cap=1024,
@@ -148,35 +181,48 @@ def run_vi(scene):
     poses, init_frame, prev = [], None, None
     for i in range(n):
         ts = i / 20.0
-        samples = imu_between(its, igyro, iacc, prev, ts)
-        prev = ts
-        img = frames[i].astype(np.float32)
-        if stereo:
-            T = slam.track_stereo(img, right[i].astype(np.float32), ts, imu_samples=samples)
+        if course:
+            feats, _, samples = frames[i]
+            T = slam.track_features(Features(*(jnp.asarray(x) for x in feats)), ts,
+                                    imu_samples=samples)
         else:
-            T = slam.track_monocular_inertial(img, ts, samples)
+            samples = imu_between(its, igyro, iacc, prev, ts)
+            img = frames[i].astype(np.float32)
+            if stereo:
+                T = slam.track_stereo(img, right[i].astype(np.float32), ts, imu_samples=samples)
+            else:
+                T = slam.track_monocular_inertial(img, ts, samples)
+        prev = ts
         poses.append(T)
         if init_frame is None and slam.tracker.imu.initialized:
             init_frame = i
     slam.shutdown()
+    stack.stop()
     imu = slam.tracker.imu
-    R, t = T_all.R.numpy(), T_all.t.numpy()
-    gt = {f: -R[f].T @ t[f] for f in range(n)}
     traj = [(fid, T) for _, fid, T in slam.tracker.absolute_trajectory()
             if init_frame is not None and fid >= init_frame]
-    post = (ate_rmse(np.array([np.linalg.inv(T)[:3, 3] for _, T in traj]),
-                     np.array([gt[f] for f, _ in traj])) if len(traj) >= 3 else (None, None))
+
+    def fit(frames_poses):
+        if len(frames_poses) < 3:
+            return None, None
+        return ate_rmse(np.array([np.linalg.inv(T)[:3, 3] for _, T in frames_poses]),
+                        np.array([gt[f] for f, _ in frames_poses]))
+
+    post = fit(traj)
+    timed = fit([(f, T) for f, T in traj if f >= n_warm])
     c = slam.closer
     m = slam.map
     print(json.dumps({
         "package": "orb_slam3_modified_tpu (JAX reference, CPU)", "scene": scene,
-        "entry": "track_stereo(imu_samples=)" if stereo else "track_monocular_inertial",
+        "draws": draws, "entry": "track_stereo(imu_samples=)" if stereo
+        else "track_features(imu_samples=)" if course else "track_monocular_inertial",
         "frames": n, "warm": n_warm, "tracked": sum(T is not None for T in poses),
         "tracked_timed": sum(T is not None for T in poses[n_warm:]), "timed": n - n_warm,
         "keyframes": m.n_keyframes(), "map_points": m.n_points(), "maps_created": m.n_maps,
         "imu_initialized": bool(imu.initialized), "imu_stage": int(imu.stage),
         "init_frame": init_frame, "post_init_frames": len(traj),
         "post_init_ate_m": post[0], "post_init_scale": None if post[1] is None else float(post[1]),
+        "timed_ate_m": timed[0], "timed_scale": None if timed[1] is None else float(timed[1]),
         "init_events": [{k: e[k] for k in ("kind", "stage", "scale", "ts", "applied")}
                         for e in imu.init_log],
         "loops_closed": c.n_loops_closed, "merges": c.n_merges, "gba_runs": c.n_gba_runs,
@@ -274,10 +320,13 @@ def main():
     ap.add_argument("scenes", nargs="*", default=list(SCENES),
                     choices=list(SCENES) + list(VI_SCENES))
     ap.add_argument("--frames", type=int, default=400)
+    ap.add_argument("--draws", type=int, nargs="*", default=[0],
+                    help="the inertial scenes' two-view draw sets (fold_in offsets)")
     a = ap.parse_args()
     for scene in a.scenes:
         if scene in VI_SCENES:
-            run_vi(scene)
+            for k in a.draws:
+                run_vi(scene, k)
         else:
             run(scene, a.frames)
 
