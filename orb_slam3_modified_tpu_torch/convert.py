@@ -66,6 +66,15 @@ def track_state(state, device="cuda") -> DeviceTrackState:
     )
 
 
+def vi_track_state(state, device="cuda"):
+    """A reference VITrackState (tracking/vi_fused.py) -> the port's."""
+    from .tracking.vi_fused import VITrackState
+
+    dev = resolve_device(device)
+    return VITrackState(*(_t(x, dev, bool if f == "ok" else np.float32)
+                          for f, x in zip(VITrackState._fields, state)))
+
+
 def features(f, device="cuda") -> Features:
     dev = resolve_device(device)
     return Features(

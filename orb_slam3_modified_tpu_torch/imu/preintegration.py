@@ -8,11 +8,13 @@ JPa, the first-order bias-corrected getters, and the closed-form merge of
 two intervals.
 
 The reference integrates one frame gap as one jitted lax.scan over a padded
-batch with a validity mask. Here the scan is a Python loop over the samples
-of eager torch on the samples' device, with the same mask semantics: a
-sample whose `valid` is False leaves every field untouched, through
-torch.where, so the loop reads nothing back. A frame gap at 200 Hz / 20 fps
-is ten samples. Gravity and the noise model are the reference's
+batch with a validity mask, and a chunk's frame gaps as a vmap of it
+(tracking/vi_fused.py::integrate_chunk). Here the scan is a Python loop
+over the samples of eager torch on the samples' device, batched over any
+leading axes (a chunk's K frames step together), with the same mask
+semantics: a sample whose `valid` is False leaves every field untouched,
+through torch.where, so the loop reads nothing back. A frame gap at 200 Hz
+/ 20 fps is ten samples. Gravity and the noise model are the reference's
 (GRAVITY_VALUE = 9.81, include/ImuTypes.h:43).
 """
 from __future__ import annotations
@@ -87,21 +89,34 @@ class Preintegrated(NamedTuple):
         )
 
 
+def _mv(M, v):
+    """M @ v over leading batch axes (one frame: the plain product)."""
+    return M @ v if v.dim() == 1 else (M @ v[..., None])[..., 0]
+
+
+def _T(M):
+    return M.transpose(-1, -2)
+
+
 def _blocks(rows):
-    return torch.cat([torch.cat(r, dim=1) for r in rows], dim=0)
+    return torch.cat([torch.cat(r, dim=-1) for r in rows], dim=-2)
 
 
 def integrate(acc, gyro, dts, valid, bias: ImuBias, noise_gyro: float = 1.7e-4,
               noise_acc: float = 2.0e-3, walk_gyro: float = 1.9e-5, walk_acc: float = 3.0e-3,
               freq: float = 200.0) -> Preintegrated:
-    """Integrate a (padded) batch of samples: acc, gyro (N, 3), dts (N,),
-    valid (N,) bool, all on one device.
+    """Integrate a (padded) batch of samples: acc, gyro (..., N, 3), dts
+    (..., N), valid (..., N) bool, all on one device; bias fields (3,) or
+    (..., 3). Leading axes are independent intervals (a chunk's frames,
+    the reference's integrate_chunk, a vmap of integrate): one loop over
+    the N samples steps them all, so trim N to the largest valid count.
 
     Discrete noise: sigma_d = sigma * sqrt(freq) (Calib::Set builds
     Cov = sigma^2 * freq * I)."""
     dev, dt_ = acc.device, acc.dtype
+    batch = acc.shape[:-2]
     eye3 = torch.eye(3, dtype=dt_, device=dev)
-    z3 = torch.zeros((3, 3), dtype=dt_, device=dev)
+    z3 = torch.zeros(batch + (3, 3), dtype=dt_, device=dev)
     ng2 = (noise_gyro ** 2) * freq
     na2 = (noise_acc ** 2) * freq
     wg2 = (walk_gyro ** 2) / freq
@@ -110,49 +125,70 @@ def integrate(acc, gyro, dts, valid, bias: ImuBias, noise_gyro: float = 1.7e-4,
     # walk variance grows with time: (walk^2 / freq) * freq * dt = walk^2 dt
     Cw_rate = torch.diag(torch.tensor([wg2] * 3 + [wa2] * 3, dtype=dt_, device=dev)) * freq
     pre = Preintegrated.identity(bias)
-    sum_a = torch.zeros(3, dtype=dt_, device=dev)
-    sum_w = torch.zeros(3, dtype=dt_, device=dev)
-    n = torch.zeros((), dtype=dt_, device=dev)
-    for i in range(acc.shape[0]):
-        a, w, dt, ok = acc[i], gyro[i], dts[i], valid[i]
+    if batch:
+        pre = Preintegrated(*(x.expand(batch + x.shape).clone() for x in pre[:10]),
+                            ImuBias(*(b.expand(batch + (3,)) for b in bias)),
+                            *(x.expand(batch + x.shape).clone() for x in pre[11:]))
+    sum_a = torch.zeros(batch + (3,), dtype=dt_, device=dev)
+    sum_w = torch.zeros(batch + (3,), dtype=dt_, device=dev)
+    n = torch.zeros(batch, dtype=dt_, device=dev)
+    for i in range(acc.shape[-2]):
+        a, w, dt, ok = acc[..., i, :], gyro[..., i, :], dts[..., i], valid[..., i]
+        dt1, dt3 = dt[..., None], dt[..., None, None]
         a_c = a - pre.bias.ba
         w_c = w - pre.bias.bg
-        dt2 = dt * dt
-        Ra = pre.dR @ a_c
+        dt2 = dt3 * dt3
+        Ra = _mv(pre.dR, a_c)
         # position / velocity with the CURRENT dR (as the reference)
-        dP_new = pre.dP + pre.dV * dt + 0.5 * Ra * dt2
-        dV_new = pre.dV + Ra * dt
+        dP_new = pre.dP + pre.dV * dt1 + 0.5 * Ra * (dt1 * dt1)
+        dV_new = pre.dV + Ra * dt1
         # covariance propagation (the A / B matrices, src/ImuTypes.cc:196)
         hat_a = so3.hat(a_c)
-        dRi = so3.exp(w_c * dt)
-        Jr = so3.right_jacobian(w_c * dt)
+        dRi = so3.exp(w_c * dt1)
+        Jr = so3.right_jacobian(w_c * dt1)
         RH = pre.dR @ hat_a
-        A = _blocks([[dRi.T, z3, z3], [-RH * dt, eye3, z3], [-0.5 * RH * dt2, eye3 * dt, eye3]])
-        B = _blocks([[Jr * dt, z3], [z3, pre.dR * dt], [z3, 0.5 * pre.dR * dt2]])
-        C9 = A @ pre.C[:9, :9] @ A.T + B @ Nga @ B.T
-        Cw = pre.C[9:, 9:] + Cw_rate * dt
-        C_new = torch.block_diag(C9, Cw)
-        C_new[:9, 9:] = pre.C[:9, 9:]
-        C_new[9:, :9] = pre.C[9:, :9]
+        A = _blocks([[_T(dRi), z3, z3], [-RH * dt3, eye3 + z3, z3],
+                     [-0.5 * RH * dt2, eye3 * dt3, eye3 + z3]])
+        B = _blocks([[Jr * dt3, z3], [z3, pre.dR * dt3], [z3, 0.5 * pre.dR * dt2]])
+        C9 = A @ pre.C[..., :9, :9] @ _T(A) + B @ Nga @ _T(B)
+        Cw = pre.C[..., 9:, 9:] + Cw_rate * dt3
+        C_new = _blocks([[C9, pre.C[..., :9, 9:]], [pre.C[..., 9:, :9], Cw]])
         # bias jacobians (src/ImuTypes.cc:221-229)
         new = Preintegrated(
             dT=pre.dT + dt,
             dR=so3.normalize(pre.dR @ dRi), dV=dV_new, dP=dP_new, C=C_new,
-            JRg=dRi.T @ pre.JRg - Jr * dt,
-            JVg=pre.JVg - RH @ pre.JRg * dt,
-            JVa=pre.JVa - pre.dR * dt,
-            JPg=pre.JPg + pre.JVg * dt - 0.5 * RH @ pre.JRg * dt2,
-            JPa=pre.JPa + pre.JVa * dt - 0.5 * pre.dR * dt2,
+            JRg=_T(dRi) @ pre.JRg - Jr * dt3,
+            JVg=pre.JVg - RH @ pre.JRg * dt3,
+            JVa=pre.JVa - pre.dR * dt3,
+            JPg=pre.JPg + pre.JVg * dt3 - 0.5 * RH @ pre.JRg * dt2,
+            JPa=pre.JPa + pre.JVa * dt3 - 0.5 * pre.dR * dt2,
             bias=pre.bias, avg_a=pre.avg_a, avg_w=pre.avg_w,
         )
         # masked update: a padded sample leaves the state untouched
-        pre = Preintegrated(*(torch.where(ok, x, y) for x, y in zip(new[:10], pre[:10])),
-                            *pre[10:])
-        sum_a = torch.where(ok, sum_a + a, sum_a)
-        sum_w = torch.where(ok, sum_w + w, sum_w)
+        ok1, ok3 = ok[..., None], ok[..., None, None]
+        pre = Preintegrated(*(torch.where(ok if x.dim() == ok.dim() else
+                                          ok1 if x.dim() == ok.dim() + 1 else ok3, x, y)
+                              for x, y in zip(new[:10], pre[:10])), *pre[10:])
+        sum_a = torch.where(ok1, sum_a + a, sum_a)
+        sum_w = torch.where(ok1, sum_w + w, sum_w)
         n = torch.where(ok, n + 1.0, n)
-    n = torch.clamp(n, min=1.0)
+    n = torch.clamp(n, min=1.0)[..., None]
     return pre._replace(avg_a=sum_a / n, avg_w=sum_w / n)
+
+
+def rebias(pre: Preintegrated, bias: ImuBias) -> Preintegrated:
+    """The interval moved to another linearization bias to first order
+    (ORB-SLAM3's GetDeltaRotation / Velocity / Position(b) update,
+    src/ImuTypes.cc:283-311, without the renormalization, so a zero change
+    leaves the deltas exact); jacobians and covariance are kept."""
+    dbg = bias.bg - pre.bias.bg
+    dba = bias.ba - pre.bias.ba
+    return pre._replace(
+        dR=pre.dR @ so3.exp(_mv(pre.JRg, dbg)),
+        dV=pre.dV + _mv(pre.JVg, dbg) + _mv(pre.JVa, dba),
+        dP=pre.dP + _mv(pre.JPg, dbg) + _mv(pre.JPa, dba),
+        bias=bias,
+    )
 
 
 # ---- bias-corrected getters (src/ImuTypes.cc:283-311) ----

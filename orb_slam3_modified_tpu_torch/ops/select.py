@@ -6,7 +6,9 @@ grid, then a global top-K per level. Batched over a leading axis.
 lax.top_k breaks ties lowest index first, and FAST scores on uint8 frames are
 integers, so ties are common; torch.topk promises no order among ties. The
 port takes a stable descending sort and slices it, which keeps equal scores
-in index order.
+in index order. Like lax.top_k, it refuses a k larger than the axis: a level
+with fewer candidates than its budget would otherwise give Features whose
+fields disagree in length.
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ import torch.nn.functional as F
 
 
 def top_k_lastdim(x, k: int):
+    if k > x.shape[-1]:
+        raise ValueError(f"k argument to top_k must be no larger than size along axis; "
+                         f"got k={k} with shape={list(x.shape)}")
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 

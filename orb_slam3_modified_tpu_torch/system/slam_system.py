@@ -27,8 +27,9 @@ The tracker, the local mapper and the loop closer share one IMU frontend
 (tracking/imu_frontend.py): preintegration, the staged init, the VI frame
 solve, the mapper's VI window BA, the closer's scale-fixed Sim3, inertial
 weld and VI global BA. IMU_MONOCULAR keeps the monocular keyframe ratio,
-the other two the depth sensors'. The chunked frontend of the inertial
-sensors is a later slice (ROADMAP item 10, its part b) and raises.
+the other two the depth sensors'. The chunked frontend runs them too
+(make_chunked_frontend, track_image(..., imu_samples=)): the VI chunk step
+once the IMU is initialized, and the staged init on the mapper worker.
 """
 from __future__ import annotations
 
@@ -337,15 +338,16 @@ class SlamSystem:
         local-mapping and loop-closing threads, src/System.cc:197,214; here
         the closer runs after each keyframe's mapping on the same worker,
         its global BA inline). Feed it track_image(img, ts) (stereo: with
-        img_right=; RGB-D: with depth_img=) and read the retired
-        (frame_id, ts, T_cw | None) triples; call flush() at the end of the
-        sequence, then shutdown(). The inertial sensors' chunked frontend
-        is ROADMAP item 10's second part: it raises."""
+        img_right=; RGB-D: with depth_img=; the inertial sensors: with
+        imu_samples=) and read the retired (frame_id, ts, T_cw | None)
+        triples; call flush() at the end of the sequence, then shutdown().
+        With the async mapper the inertial sensors' staged IMU init runs on
+        the worker after each keyframe's mapping (InitializeIMU on the
+        LocalMapping thread, src/LocalMapping.cc:200-230), and the frontend
+        applies each similarity it commits; with async_mapping=False it runs
+        inside keyframe creation."""
         from ..tracking.chunked import ChunkedTracker
 
-        if self.cfg.sensor in _INERTIAL:
-            raise NotImplementedError("the chunked frontend of the inertial sensors (chunked VI "
-                                      "steps): ROADMAP item 10")
         lock = None
         if async_mapping:
             from ..mapping.async_mapper import AsyncLocalMapper
@@ -356,6 +358,15 @@ class SlamSystem:
             self.tracker.on_keyframe = am.on_keyframe
             self.tracker.mapper_busy_fn = am.busy
             lock = am.lock
+            imu = self.tracker.imu
+            if imu is not None:
+                imu.async_init = True
+                imu.map_lock = am.lock
+                # the reference also hands the init an abort_gba_fn that stops
+                # a stale global BA thread before it realigns the map; the
+                # port's closer runs global BA inline on this same worker, so
+                # none can be in flight when the init commits
+                am.init_fn = lambda: imu.run_pending_init(self.map, self.tracker)
         ct = ChunkedTracker(self.tracker, self.ecfg, chunk=chunk, lag=lag, map_lock=lock,
                             stereo=stereo, min_z=self.cfg.min_depth, rgbd=rgbd,
                             depth_scale=self.cfg.depth_scale, th_far=self.cfg.th_far_points)

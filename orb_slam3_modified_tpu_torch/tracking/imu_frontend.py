@@ -23,7 +23,7 @@ default (the per-frame entry points). The asynchronous mode
 (run_pending_init, _bg_full_vi_ba: snapshot under map_lock, solve
 unlocked, commit under the lock unless a reset or loss bumped the epoch
 meanwhile, the applied similarity logged in align_log) is the one the
-chunked frontend uses (ROADMAP item 10b).
+chunked frontend uses (tracking/chunked.py).
 """
 from __future__ import annotations
 

@@ -34,9 +34,11 @@ from orb_slam3_modified_tpu_torch.cameras import Camera
 from orb_slam3_modified_tpu_torch.features.extractor import ORBExtractor
 from orb_slam3_modified_tpu_torch.lie.se3 import SE3
 from orb_slam3_modified_tpu_torch.tracking import fused as tfused
-from orb_slam3_modified_tpu_torch.tracking.chunked import make_chunk_step
+from orb_slam3_modified_tpu_torch.tracking.chunked import make_chunk_step, make_vi_chunk_step
 from orb_slam3_modified_tpu_torch.tracking.fused import DeviceTrackState, make_step_body
+from orb_slam3_modified_tpu_torch.tracking.imu_frontend import ImuConfig
 from orb_slam3_modified_tpu_torch.tracking.tracker import inv_level_sigma2
+from orb_slam3_modified_tpu_torch.tracking.vi_fused import make_vi_step_body
 from orb_slam3_modified_tpu_torch.utils.synthetic import orbit_trajectory
 from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import (
     make_texture,
@@ -204,6 +206,8 @@ def test_entry_points_default_to_cuda():
         lambda: ORBExtractor(cfg, 96, 128),
         lambda: make_step_body(cam_cpu, inv_level_sigma2(), 64),
         lambda: make_chunk_step(cam_cpu, inv_level_sigma2(), cfg),
+        lambda: make_vi_step_body(cam_cpu, inv_level_sigma2(), 64, ImuConfig()),
+        lambda: make_vi_chunk_step(cam_cpu, inv_level_sigma2(), cfg, ImuConfig()),
     ]
     for build in builders:
         if torch.cuda.is_available():

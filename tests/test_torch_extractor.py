@@ -254,3 +254,26 @@ class TestFeatureCases:
     def test_multiscale(self):
         f = text.extract(textured_image(480, 640, seed=2), text.ExtractorConfig(n_features=600))
         assert int(f.level[f.valid].max()) >= 4
+
+
+@pytest.mark.parametrize("size", [(120, 160), (240, 320)])
+def test_level_budget_beyond_candidates_is_refused_as_the_reference_refuses_it(size):
+    """128 features over 2 levels: at 160x120 the second level has fewer
+    per-cell candidates (48) than its budget, and both packages refuse the
+    configuration (lax.top_k's ValueError; the port's top_k_lastdim
+    raises the same); at 320x240 both extract, and every field of the
+    port's Features has the reference's capacity."""
+    h, w = size
+    img = np.random.default_rng(0).uniform(0, 255, (h, w)).astype(np.float32)
+    jcfg = jext.ExtractorConfig(n_features=128, n_levels=2)
+    if size == (120, 160):
+        with pytest.raises(ValueError, match="top_k"):
+            jext.extract(jnp.asarray(img), jcfg)
+        with pytest.raises(ValueError, match="top_k"):
+            text.extract(torch.from_numpy(img), convert.extractor_config(jcfg))
+        return
+    jf = jext.extract(jnp.asarray(img), jcfg)
+    tf = text.extract(torch.from_numpy(img), convert.extractor_config(jcfg))
+    for name, jx, tx in zip(jf._fields, jf, tf):
+        assert tuple(tx.shape) == np.asarray(jx).shape, name
+        assert tx.shape[0] == jcfg.n_features, name

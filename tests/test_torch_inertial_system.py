@@ -337,8 +337,11 @@ def test_depth_inertial_sensors_initialize_without_rescale():
 def test_image_entry_points_take_imu_samples():
     """track_monocular_inertial, track_stereo(imu_samples=) and
     track_rgbd(imu_samples=) on three 320x240 frames each: the samples are
-    integrated (the keyframe interval grows by each frame's 10), and the
-    chunked frontend of an inertial sensor is refused (ROADMAP item 10)."""
+    integrated (the keyframe interval grows by each frame's 10); the
+    chunked frontend of each inertial sensor builds and takes the same
+    three frames through track_image(..., imu_samples=): they retire in
+    order, the depth sensors' from a map initialized at frame 0, with the
+    interval integrated on its slow path and merged on its fast path."""
     from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig
     from orb_slam3_modified_tpu_torch.system import slam_system as ss
     from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import (
@@ -356,8 +359,25 @@ def test_image_entry_points_take_imu_samples():
         slam = ss.SlamSystem(ss.SystemConfig(
             cam=cam, sensor=sensor, feat_cap=256, bf=22.0, use_loop_closing=False, device="cpu",
             extractor=ExtractorConfig(n_features=256, n_levels=4)))
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            slam.make_chunked_frontend()
+        chunked = ss.SlamSystem(ss.SystemConfig(
+            cam=cam, sensor=sensor, feat_cap=256, bf=22.0, use_loop_closing=False, device="cpu",
+            extractor=ExtractorConfig(n_features=256, n_levels=4)))
+        fe = chunked.make_chunked_frontend(chunk=2, async_mapping=False,
+                                           stereo=sensor == ss.IMU_STEREO,
+                                           rgbd=sensor == ss.IMU_RGBD)
+        prev, retired = None, []
+        for i in range(3):
+            kw = {ss.IMU_STEREO: {"img_right": right[i]},
+                  ss.IMU_RGBD: {"depth_img": depth[i]}}.get(sensor, {})
+            retired += fe.track_image(left[i], i / FPS, **kw,
+                                      imu_samples=imu_between(ts, gyro, acc, prev, i / FPS))
+            prev = i / FPS
+        retired += fe.flush()
+        assert [r[0] for r in retired] == [0, 1, 2]
+        cimu = chunked.tracker.imu
+        if sensor != ss.IMU_MONOCULAR:  # frames 1-2: one chunk of the fast path
+            assert all(r[2] is not None for r in retired) and chunked.map.n_keyframes() >= 1
+            assert cimu.preint_kf is not None and float(cimu.preint_kf.dT) > 0.1 - 1e-6
         prev = None
         for i in range(3):
             samples = imu_between(ts, gyro, acc, prev, i / FPS)

@@ -139,23 +139,36 @@ def test_anchor_falls_back_to_a_covisible_keyframe():
 def test_system_refuses_what_later_slices_bring():
     """The inertial sensors build (tracker, mapper and closer share one IMU
     frontend; IMU_MONOCULAR keeps the monocular keyframe ratio, the other two
-    the depth sensors'), but their chunked frontend, and imu_samples on the
-    chunked frontend, still raise (ROADMAP item 10); monocular, stereo and
-    RGB-D build. Loop closing, ported since, is on by default and builds the
-    closer and the relocalization hook; its inertial global BA runs."""
+    the depth sensors'), and so does their chunked frontend, which takes
+    track_image(..., imu_samples=) (tests/test_torch_vi_chunked*.py run it);
+    a monocular chunked frontend, with no IMU frontend, ignores imu_samples
+    as the reference's does; monocular, stereo and RGB-D build. Loop
+    closing, ported since, is on by default and builds the closer and the
+    relocalization hook; its inertial global BA runs."""
     from orb_slam3_modified_tpu_torch.system.slam_system import (
         IMU_MONOCULAR, IMU_RGBD, IMU_STEREO, RGBD, STEREO, SlamSystem, SystemConfig,
     )
 
     cam = convert.camera(JCAM, device="cpu")
+    blank = np.zeros((480, 752), np.uint8)
+    samples = (np.tile(np.float32([0.0, 0.0, 9.81]), (10, 1)), np.zeros((10, 3), np.float32),
+               np.full(10, 0.005, np.float32))
     for sensor in (IMU_MONOCULAR, IMU_STEREO, IMU_RGBD):
-        slam = SlamSystem(SystemConfig(cam=cam, sensor=sensor, device="cpu"))
+        slam = SlamSystem(SystemConfig(cam=cam, sensor=sensor, device="cpu", bf=50.0))
         imu = slam.tracker.imu
         assert imu is not None and slam.mapper.imu is imu and slam.closer.imu is imu
         assert slam.closer.cfg.fix_scale and imu.cfg.mono == (sensor == IMU_MONOCULAR)
         assert slam.tcfg.kf_tracked_ratio == (0.9 if sensor == IMU_MONOCULAR else 0.75)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-            slam.make_chunked_frontend(async_mapping=False)
+        fe = slam.make_chunked_frontend(async_mapping=False, stereo=sensor == IMU_STEREO,
+                                        rgbd=sensor == IMU_RGBD)
+        assert fe.imu is imu and not fe._vi
+        kw = {IMU_STEREO: {"img_right": blank},
+              IMU_RGBD: {"depth_img": np.zeros((480, 752), np.float32)}}.get(sensor, {})
+        retired = []
+        for i in range(2):  # a blank frame initializes nothing: the slow path retires it
+            retired += fe.track_image(blank, i / 20.0, imu_samples=samples, **kw)
+        assert [r[0] for r in retired] == [0, 1] and all(r[2] is None for r in retired)
+        assert abs(float(imu.preint_frame.dT) - 0.05) < 1e-6
     for sensor in (STEREO, RGBD):  # ORB-SLAM3's keyframe ratio for depth sensors
         tcfg = SlamSystem(SystemConfig(cam=cam, sensor=sensor, bf=50.0, use_loop_closing=False,
                                        device="cpu")).tcfg
@@ -165,8 +178,8 @@ def test_system_refuses_what_later_slices_bring():
     assert slam.closer is not None and slam.tracker.relocalize_fn is not None
     assert SlamSystem(SystemConfig(cam=cam, use_loop_closing=False, device="cpu")).closer is None
     fe = slam.make_chunked_frontend(async_mapping=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        fe.track_image(np.zeros((480, 752), np.uint8), 0.0, imu_samples=([], [], []))
+    assert fe.imu is None
+    assert fe.track_image(blank, 0.0, imu_samples=samples) == [(0, 0.0, None)]
     # without an IMU the closer's inertial GBA is never routed to; with one
     # whose chain is too short it declines (False) and the visual GBA runs
     slam.closer.imu = slam.tracker.imu = SlamSystem(
