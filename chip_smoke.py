@@ -106,8 +106,8 @@ before the last line:
              and the matrix entry launched;
   mono_inertial_image  the image entry track_monocular_inertial on
              bench.py's VI scene (main_vi: 512x384, write_euroc_sequence's
-             quarter orbit, the noise-free 200 Hz IMU), its first 100 frames
-             (40 warm-up), with extraction ms: the same numbers, the path's
+             quarter orbit, the noise-free 200 Hz IMU), its first 72 frames
+             (28 warm-up), with extraction ms: the same numbers, the path's
              gates only (its accelerations leave the monocular scale
              unobservable in both packages, REF_MONO_INERTIAL_IMAGE);
   stereo_inertial  the same through track_stereo(..., imu_samples=) on the
@@ -132,10 +132,34 @@ before the last line:
              the stage reached, the tracked timed frames and the timed ATE
              are no worse than the JAX reference's worst chunked run on the
              same frames (REF_VI, REF_SI);
-then one line {"kernels": [...]} (each entry's `launches` counted on the
+  cli        the port's runner as its users call it: the headline scene's
+             first 96 frames (752x480, EuRoC intrinsics) written as a EuRoC
+             folder through io/png.py with a settings file of the
+             reference's format (no distortion, 1024 features over 8
+             levels), then run.main([... "--dataset", "euroc", "--sensor",
+             "mono", "--chunked", "--chunk-size", "16", "--kf-out",
+             "--atlas-out", "--semantic-out" ...]) on the card (async
+             mapper, loop closing on). The runner's frames/s, decode and
+             upload ms a frame (PNG_DECODER names the decoder), both entries'
+             launches, the depth net's ms a frame on the card. Fails unless
+             the frames read back equal the rendered ones, the trajectory
+             file, every pose and the map equal those of the same frames fed
+             from memory through SlamSystem.make_chunked_frontend(chunk=16,
+             lag=1) to the bit, every frame from the initialization on is in
+             the trajectory file, eval's ATE < 0.25 m, the fused entry
+             launched at least twice per chunk-stepped frame, the matrix entry
+             launched, no plain version was called, the atlas loads back
+             equal to the map, a second run.main with --atlas-in tracks the
+             next 16 frames with every holder of the map bound to the loaded
+             one, the depth net's card output on one frame is within 1e-4
+             relative of its CPU output (class maps equal off near-ties) and
+             the semantic cloud is not empty;
+then one line {"phase": "seconds", ...} (each phase's host seconds, its
+scene renders included),
+one line {"kernels": [...]} (each entry's `launches` counted on the
 main path, the system phase, with the slice's, the loop's, the stereo, the
-rgbd, the three inertial and the vi and si phases' counts beside it in
-`launches_by_path`, the closer's and
+rgbd, the three inertial, the vi and si and the cli phases' counts beside
+it in `launches_by_path`, the closer's and
 relocalization's share of the loop phase's in `loop_by_stage`, and
 `kernel_phase_calls`) and, last, {"ok": true, "device": {...}}.
 
@@ -1325,11 +1349,14 @@ def phase_depth(dev, scene, async_mapping=True, start=0):
 # - mono_inertial_image: bench.py's VI scene (main_vi: a 512x384 pinhole,
 #   write_euroc_sequence's quarter orbit of 400 frames, radius 4 m, sweep
 #   pi/2, the noise-free 200 Hz IMU, identity extrinsics) through the image
-#   entry track_monocular_inertial, cut to its first 100 frames (40
-#   warm-up; 200 and 80 before the vi and si phases needed the time). Its accelerations (0.02-0.03 m/s^2) leave the monocular scale
-#   unobservable: the reference never initializes there for good (six init
-#   events over 400 frames, each reset by the bad-IMU rule), so the phase
-#   gates the path only and reports its accuracy.
+#   entry track_monocular_inertial, cut to its first 72 frames (28
+#   warm-up; 200 and 80 before the vi and si phases needed the time, 100
+#   and 40 before the cli phase did; the port's first init is at frame
+#   41, the reference's at 47). Its accelerations (0.02-0.03 m/s^2)
+#   leave the monocular scale unobservable: the reference never
+#   initializes there for good (six init events over 400 frames, each
+#   reset by the bad-IMU rule), so the phase gates the path only and
+#   reports its accuracy.
 # - stereo_inertial: the stereo scene's 752x480 pair on bench.py's VI orbit
 #   law, cut to its first 150 frames (60 warm-up; 200 and 64 before the vi
 #   and si phases needed the time).
@@ -1337,7 +1364,7 @@ def phase_depth(dev, scene, async_mapping=True, start=0):
 # - vi / si: bench.py's main_vi through the chunked frontend (see
 #   phase_chunked_vi): vi the VI scene uncut, 160 warm-up frames; si its
 #   first 200 frames, 80 warm-up (the script's time).
-VI_FRAMES = {"mono_inertial": (320, 128), "mono_inertial_image": (100, 40),
+VI_FRAMES = {"mono_inertial": (320, 128), "mono_inertial_image": (72, 28),
              "stereo_inertial": (150, 60), "vi": (400, 160), "si": (200, 80)}
 VI_CAM = (330.0, 330.0, 256.0, 192.0, 512, 384)  # bench.py's main_vi camera
 VI_BASELINE_M = 0.11  # bench.py's main_vi stereo baseline
@@ -1935,6 +1962,254 @@ def phase_chunked_vi(dev, scene):
     return result
 
 
+# the cli phase: the port's runner on the headline frames written as a
+# EuRoC folder (io/png.py), its first 96 frames; a resume from the atlas it
+# writes runs on the next 16
+N_CLI_FRAMES = 96
+N_CLI_RESUME = 16
+DEPTH_NET_RTOL = 1e-4  # the depth net on the card against the CPU, relative
+DEPTH_NET_TIE = 1e-3  # class maps compared where the CPU's two logits are further apart
+
+
+def _write_cli_sequence(root, frames, first, cam, cfg_path):
+    """frames as a EuRoC folder (frame i at i / 20 s, nanosecond stamps)
+    and, with cfg_path, a settings file in the reference's dotted keys:
+    the camera, no distortion, N_FEATURES features over 8 levels. Returns
+    the stamps in seconds as the reader computes them."""
+    from orb_slam3_modified_tpu_torch.utils.synthetic_dataset import write_euroc_images
+
+    t_ns = [int(round((first + i) / 20.0 * 1e9)) for i in range(len(frames))]
+    write_euroc_images(f"{root}/mav0/cam0", t_ns, frames)
+    if cfg_path:
+        fx, fy, cx, cy = (float(x) for x in cam.params[:4])
+        with open(cfg_path, "w") as f:
+            f.write("%YAML:1.0\n---\n" + "".join(
+                f"{k}: {v!r}\n" for k, v in (
+                    ("Camera.type", "PinHole"), ("Camera.fx", fx), ("Camera.fy", fy),
+                    ("Camera.cx", cx), ("Camera.cy", cy), ("Camera.width", cam.width),
+                    ("Camera.height", cam.height), ("Camera.fps", 20.0), ("Camera.RGB", 1),
+                    ("ORBextractor.nFeatures", N_FEATURES), ("ORBextractor.nLevels", 8))))
+    return [t * 1e-9 for t in t_ns]
+
+
+def _same_map(a, b):
+    """Field names of the two MapStates that differ (arrays bit for bit)."""
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                out.append(f.name)
+        elif f.name in ("active_map", "n_maps", "n_inertial_ba", "imu_initialized", "next_kf"):
+            if x != y:
+                out.append(f.name)
+        elif f.name == "loop_edges" and [tuple(e) for e in x] != [tuple(e) for e in y]:
+            out.append(f.name)
+    return out
+
+
+def _depth_net_check(dev, image):
+    """The shipped depth net (models/depth.py) on one frame, card against
+    CPU, and its ms a frame on the card (one upload, the net and both
+    resizes, CUDA events)."""
+    from orb_slam3_modified_tpu_torch.models import depth
+
+    net_d, meta = depth.default_depth_model(device=dev)
+    net_c, _ = depth.default_depth_model(device="cpu")
+    hw = tuple(int(x) for x in meta["train_res"].split("x"))
+    img = np.asarray(image, np.float32)
+    d_dev, d_cpu = (depth.make_depth_fn(n, hw)(img) for n in (net_d, net_c))
+    s_dev, s_cpu = (depth.make_seg_fn(n, hw)(img) for n in (net_d, net_c))
+    logits = depth._run_at_train_res(net_c, img, hw)[1].numpy()
+    clear = np.abs(logits[1] - logits[0]) > DEPTH_NET_TIE
+    rel = float(np.max(np.abs(d_dev - d_cpu) / d_cpu))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        depth.make_depth_fn(net_d, hw)(img)
+        depth.make_seg_fn(net_d, hw)(img)
+    host_ms = (time.perf_counter() - t0) / 10 * 1e3
+    return {"shape": list(img.shape), "train_res": list(hw), "depth_max_rel_err": rel,
+            "depth_rtol": DEPTH_NET_RTOL, "seg_equal_off_ties": bool(np.array_equal(
+                s_dev[clear], s_cpu[clear])), "seg_ties": int((~clear).sum()),
+            "ms_per_frame": cuda_ms(lambda: depth._run_at_train_res(net_d, img, hw), iters=20),
+            "depth_and_seg_fns_host_ms_per_frame": host_ms}
+
+
+def phase_cli(dev):
+    """The port's runner, as its users call it (see the module docstring):
+    run.main on the headline frames written as a EuRoC folder, against the
+    same frames fed from memory through SlamSystem.make_chunked_frontend."""
+    import contextlib
+    import io
+    import tempfile
+
+    from orb_slam3_modified_tpu_torch import run
+    from orb_slam3_modified_tpu_torch.cameras import Camera
+    from orb_slam3_modified_tpu_torch.eval import __main__ as eval_main
+    from orb_slam3_modified_tpu_torch.features import matcher
+    from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig
+    from orb_slam3_modified_tpu_torch.io import datasets, png
+    from orb_slam3_modified_tpu_torch.ops.hamming import HAMMING_KERNEL
+    from orb_slam3_modified_tpu_torch.slam_map.serialization import load_atlas
+    from orb_slam3_modified_tpu_torch.system.slam_system import (
+        MONOCULAR, SlamSystem, SystemConfig,
+    )
+    from orb_slam3_modified_tpu_torch.tracking.chunked import ChunkedTracker
+
+    k = FRAME_W / 752
+    cam = Camera.pinhole(458.654 * k, 457.296 * k, 367.215 * k, 248.375 * k,
+                         width=FRAME_W, height=FRAME_H, device=dev)
+    T_all, all_frames = _headline(cam)
+    n, n2 = N_CLI_FRAMES, N_CLI_RESUME
+    frames, more = all_frames[:n], all_frames[n:n + n2]
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cfg = f"{tmp}/cli.yaml"
+        ts = _write_cli_sequence(f"{tmp}/seq", frames, 0, cam, cfg)
+        _write_cli_sequence(f"{tmp}/more", more, n, cam, None)
+        write_s = time.perf_counter() - t0
+        read_back = [fr.image for fr in datasets.EurocDataset(f"{tmp}/seq")]
+        # io/png.py reads them too, whichever decoder the readers chose
+        t0 = time.perf_counter()
+        by_png = [png.read_png_gray(f) for f in datasets.EurocDataset(f"{tmp}/seq").files]
+        png_ms = (time.perf_counter() - t0) / n * 1e3
+        frames_equal = len(read_back) == n and all(
+            np.array_equal(a, b.astype(np.float32)) and np.array_equal(c, b)
+            for a, b, c in zip(read_back, frames, by_png))
+        if not frames_equal:
+            failures.append("the frames read back differ from the rendered frames")
+        out = {x: f"{tmp}/{x}" for x in ("traj.txt", "kf.txt", "atlas", "cloud.ply",
+                                         "resumed.txt", "gt.txt")}
+        argv = ["--dataset", "euroc", "--path", f"{tmp}/seq", "--config", cfg, "--sensor",
+                "mono", "--chunked", "--chunk-size", str(CHUNK), "--device", str(dev), "--out",
+                out["traj.txt"], "--kf-out", out["kf.txt"], "--atlas-out", out["atlas"],
+                "--semantic-out", out["cloud.ply"]]
+        stepped = [0]
+        dispatch = ChunkedTracker._dispatch_buffer
+
+        def counted_dispatch(self):
+            stepped[0] += len(self._buf)
+            return dispatch(self)
+
+        printed = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            plain_calls = _count_plain_calls(stack)
+            stack.enter_context(mock.patch.object(ChunkedTracker, "_dispatch_buffer",
+                                                  counted_dispatch))
+            stack.enter_context(contextlib.redirect_stdout(printed))
+            torch.cuda.synchronize()
+            HAMMING_KERNEL.launches = matcher.MATCH_KERNEL.launches = 0
+            res = run.main(argv)
+            launches = {"hamming_matrix": HAMMING_KERNEL.launches,
+                        "mutual_best_match": matcher.MATCH_KERNEL.launches}
+        upload_s = sum(res.frontend.stats.samples.get("upload", []))
+        slam = res.slam
+
+        # the same frames from memory through the frontend the runner drives
+        mem = SlamSystem(SystemConfig(cam=cam, sensor=MONOCULAR, feat_cap=N_FEATURES,
+                                      extractor=ExtractorConfig(n_features=N_FEATURES),
+                                      use_loop_closing=True, device=str(dev)))
+        fe = mem.make_chunked_frontend(chunk=CHUNK, lag=1)
+        t0 = time.perf_counter()
+        retired = []
+        for i in range(n):
+            retired += fe.track_image(frames[i], ts[i])
+        retired += fe.flush()
+        mem.shutdown()
+        mem_s = time.perf_counter() - t0
+        mem.save_trajectory_tum(f"{tmp}/mem.txt")
+        with open(out["traj.txt"], "rb") as f, open(f"{tmp}/mem.txt", "rb") as g:
+            same_traj = f.read() == g.read()
+        same_abs = [(a[0], a[1]) for a in slam.tracker.absolute_trajectory()] == [
+            (a[0], a[1]) for a in mem.tracker.absolute_trajectory()] and all(
+            np.array_equal(a[2], b[2]) for a, b in zip(slam.tracker.absolute_trajectory(),
+                                                       mem.tracker.absolute_trajectory()))
+        map_diff = _same_map(slam.map, mem.map)
+        if not (same_traj and same_abs and not map_diff and res.retired == [r[0] for r in
+                                                                            retired]):
+            failures.append(f"the runner's trajectory or map differ from the in-memory "
+                            f"frontend's: file {same_traj}, poses {same_abs}, map {map_diff}")
+
+        # the trajectory file against the ground truth through eval's main
+        traj = np.loadtxt(out["traj.txt"], ndmin=2)
+        R, t = T_all.R.numpy(), T_all.t.numpy()
+        with open(out["gt.txt"], "w") as f:
+            for i in range(n):
+                c = -R[i].T @ t[i]
+                f.write(f"{ts[i]:.6f} {c[0]:.7f} {c[1]:.7f} {c[2]:.7f} 0 0 0 1\n")
+        with contextlib.redirect_stdout(printed):
+            ate = eval_main.main([out["gt.txt"], out["traj.txt"]])
+        # a monocular trajectory starts at the two-view initialization, as
+        # the reference's (SaveTrajectoryTUM skips the frames before it)
+        missing = sorted(set(range(n)) - {int(round(x * 20.0)) for x in traj[:, 0]})
+        if missing != list(range(len(missing))) or len(traj) != n - len(missing):
+            failures.append(f"frames missing from the trajectory file after the "
+                            f"initialization: {missing}")
+        if not ate < ATE_GATE_M:
+            failures.append(f"ATE {ate} m >= {ATE_GATE_M}")
+        if launches["hamming_matrix"] == 0:
+            failures.append("the matrix entry never launched on the runner's path")
+        if launches["mutual_best_match"] < 2 * stepped[0]:
+            failures.append(f"the fused entry launched fewer than 2 times per chunk-stepped "
+                            f"frame: {launches['mutual_best_match']} for {stepped[0]}")
+        if any(plain_calls.values()):
+            failures.append(f"plain versions called on the card: {plain_calls}")
+
+        # the atlas the runner wrote, and a resume from it on the next frames
+        atlas_diff = _same_map(load_atlas(out["atlas"]), slam.map)
+        if atlas_diff:
+            failures.append(f"the atlas loads back different: {atlas_diff}")
+        with contextlib.redirect_stdout(printed):
+            resumed = run.main(["--dataset", "euroc", "--path", f"{tmp}/more", "--config", cfg,
+                                "--sensor", "mono", "--chunked", "--chunk-size", str(CHUNK),
+                                "--device", str(dev), "--out", out["resumed.txt"],
+                                "--atlas-in", out["atlas"]])
+        r = resumed.slam
+        holders = all(h is r.map for h in (r.tracker.map, r.mapper.map, r.closer.map,
+                                            r.async_mapper.mapper.map,
+                                            resumed.frontend.tracker.map))
+        if resumed.retired != list(range(n2)) or not holders:
+            failures.append(f"the resume retired {resumed.retired} (holders bound: {holders})")
+        with open(out["cloud.ply"]) as f:
+            cloud_points = int([next(f) for _ in range(3)][2].split()[-1])
+    net = _depth_net_check(dev, frames[0])
+    if not net["depth_max_rel_err"] <= DEPTH_NET_RTOL or not net["seg_equal_off_ties"]:
+        failures.append(f"the depth net on the card differs from the CPU: {net}")
+    if cloud_points == 0:
+        failures.append("the semantic cloud is empty")
+    result = {
+        "phase": "cli", "frames": n, "size": [FRAME_W, FRAME_H], "n_features": N_FEATURES,
+        "chunk": CHUNK, "lag": 1, "async_mapping": True, "loop_closing": True,
+        "png_decoder": datasets.PNG_DECODER, "frames_read_back_equal": frames_equal,
+        "png_module_decode_ms_per_frame": png_ms,
+        "write_sequence_s": write_s, "runner_s": res.seconds, "runner_frames_per_s":
+        n / res.seconds, "in_memory_frames_per_s": n / mem_s,
+        "decode_ms_per_frame": res.read_seconds / n * 1e3,
+        "upload_ms_per_frame": upload_s / n * 1e3,
+        "io_ms_per_frame": (res.read_seconds + upload_s) / n * 1e3,
+        "retired_in_order": res.retired == list(range(n)), "tracked": len(traj),
+        "untracked_before_init": missing,
+        "keyframes": slam.map.n_keyframes(), "map_points": slam.map.n_points(),
+        "ate_m": ate, "trajectory_equal_in_memory": same_traj, "poses_equal_in_memory": same_abs,
+        "map_fields_differing_from_in_memory": map_diff, "atlas_fields_differing": atlas_diff,
+        "resume": {"frames": resumed.n_frames, "retired_in_order": resumed.retired == list(
+            range(n2)), "holders_bound": holders, "maps": r.map.n_maps,
+            "keyframes_all_maps": r.map.n_keyframes(all_maps=True)},
+        "semantic_cloud_points": cloud_points, "depth_net": net,
+        "chunk_stepped_frames": stepped[0], "launches": launches,
+        "launches_per_chunk_stepped_frame": {k_: v / max(stepped[0], 1)
+                                             for k_, v in launches.items()},
+        "plain_calls": plain_calls, "frontend_stages": res.frontend.stats.summary(),
+    }
+    emit(result)
+    if failures:
+        raise SystemExit("cli failed: " + "; ".join(failures))
+    return result
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU",
@@ -1943,20 +2218,32 @@ def main():
     import orb_slam3_modified_tpu_torch  # noqa: F401  (TF32 off)
 
     dev = torch.device("cuda", 0)
-    device = phase_device()
-    phase_build()
-    hamming, match, kernel_launches = phase_kernel(dev)
-    slice_result, ctx = phase_slice(dev)
-    phase_breakdown(dev, ctx)
-    system = phase_system(dev)
-    loop = phase_loop(dev)
-    stereo = phase_depth(dev, "stereo")
-    rgbd = phase_depth(dev, "rgbd")
-    mono_inertial = phase_inertial(dev, "mono_inertial")
-    mono_inertial_image = phase_inertial(dev, "mono_inertial_image")
-    stereo_inertial = phase_inertial(dev, "stereo_inertial")
-    vi = phase_chunked_vi(dev, "vi")
-    si = phase_chunked_vi(dev, "si")
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    t_start = time.perf_counter()
+    device = timed("device", phase_device)
+    timed("build", phase_build)
+    hamming, match, kernel_launches = timed("kernel", phase_kernel, dev)
+    slice_result, ctx = timed("slice", phase_slice, dev)
+    timed("breakdown", phase_breakdown, dev, ctx)
+    system = timed("system", phase_system, dev)
+    loop = timed("loop", phase_loop, dev)
+    stereo = timed("stereo", phase_depth, dev, "stereo")
+    rgbd = timed("rgbd", phase_depth, dev, "rgbd")
+    mono_inertial = timed("mono_inertial", phase_inertial, dev, "mono_inertial")
+    mono_inertial_image = timed("mono_inertial_image", phase_inertial, dev, "mono_inertial_image")
+    stereo_inertial = timed("stereo_inertial", phase_inertial, dev, "stereo_inertial")
+    vi = timed("vi", phase_chunked_vi, dev, "vi")
+    si = timed("si", phase_chunked_vi, dev, "si")
+    cli = timed("cli", phase_cli, dev)
+    # host seconds of each phase (scene renders included) and of the script
+    emit({"phase": "seconds", **seconds, "total": time.perf_counter() - t_start})
     source = "orb_slam3_modified_tpu_torch/csrc/hamming.cu"
     replaces = "orb_slam3_modified_tpu/ops/pallas_kernels.py:31"
     hot_h, hot_m = hamming[(4096, 1024)], match[(4096, 1024, True)]
@@ -1979,7 +2266,8 @@ def main():
                                  "stereo_inertial":
                                      stereo_inertial["launches"]["hamming_matrix"],
                                  "vi": vi["launches"]["hamming_matrix"],
-                                 "si": si["launches"]["hamming_matrix"]},
+                                 "si": si["launches"]["hamming_matrix"],
+                                 "cli": cli["launches"]["hamming_matrix"]},
             "stereo_match_launches": stereo["stereo_match_launches"]["hamming_matrix"],
             "loop_by_stage": {stage: v["hamming_matrix"]
                               for stage, v in loop["launches_by_stage"].items()},
@@ -2003,7 +2291,8 @@ def main():
                                  "stereo_inertial":
                                      stereo_inertial["launches"]["mutual_best_match"],
                                  "vi": vi["launches"]["mutual_best_match"],
-                                 "si": si["launches"]["mutual_best_match"]},
+                                 "si": si["launches"]["mutual_best_match"],
+                                 "cli": cli["launches"]["mutual_best_match"]},
             "loop_by_stage": {stage: v["mutual_best_match"]
                               for stage, v in loop["launches_by_stage"].items()},
             "kernel_phase_calls": kernel_launches["mutual_best_match"],

@@ -226,13 +226,16 @@ class StereoRectification:
     cx: float
     cy: float
     bf: float  # baseline * fx of the rectified pair
+    # the four maps on each device remap has run on, uploaded once
+    _on_device: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def remap(self, img_left: torch.Tensor, img_right: torch.Tensor):
-        def maps(*ms):
-            return [torch.as_tensor(m_).to(img_left.device) for m_ in ms]
-
-        return (remap_bilinear(img_left, *maps(self.map_lx, self.map_ly)),
-                remap_bilinear(img_right, *maps(self.map_rx, self.map_ry)))
+        dev = img_left.device
+        if dev not in self._on_device:
+            self._on_device[dev] = [torch.as_tensor(m_).to(dev) for m_ in
+                                    (self.map_lx, self.map_ly, self.map_rx, self.map_ry)]
+        lx, ly, rx, ry = self._on_device[dev]
+        return remap_bilinear(img_left, lx, ly), remap_bilinear(img_right, rx, ry)
 
 
 def build_rectification(K1, D1, K2, D2, image_size, R, t) -> StereoRectification:

@@ -187,3 +187,25 @@ def imu_frontend(src, dst=None, device="cuda"):
     dst.bad_imu = bool(src.bad_imu)
     dst.refine_idx = int(src.refine_idx)
     return dst
+
+
+def depth_net_state_dict(params) -> dict:
+    """The reference DepthSegNet's flax params (nested dicts of numpy
+    arrays) -> the port's models/depth.py state_dict as numpy arrays: HWIO
+    kernels become OIHW; _ConvBlock_i/Conv_j -> blocks.i.convj, Conv_0 (the
+    inverse-depth head) -> inv_head, Conv_1 (the seg head) -> seg_head."""
+    out = {}
+
+    def conv(name, p):
+        out[f"{name}.weight"] = np.ascontiguousarray(
+            np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1))
+        out[f"{name}.bias"] = np.asarray(p["bias"], np.float32)
+
+    for key, sub in params.items():
+        if key.startswith("_ConvBlock_"):
+            i = int(key.rsplit("_", 1)[1])
+            for ckey, p in sub.items():
+                conv(f"blocks.{i}.conv{int(ckey.rsplit('_', 1)[1])}", p)
+        else:
+            conv({"Conv_0": "inv_head", "Conv_1": "seg_head"}[key], sub)
+    return out

@@ -7,6 +7,7 @@ reads a tensor value (no host sync on the card).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-6
@@ -140,6 +141,43 @@ def quat_from_mat(R):
     q = torch.take_along_dim(cand, best[..., None, None], dim=-2)[..., 0, :]
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_from_mat_np(R) -> np.ndarray:
+    """quat_from_mat on the host, for the trajectory files: (..., 3, 3) ->
+    (..., 4) float32 wxyz, bit for bit what the reference's quat_from_mat
+    gives on float32 input on the CPU (its savers call it eagerly). numpy's
+    float32 sqrt is exact where torch's CPU sqrt is not, and the final norm
+    accumulates q0^2 + q1^2 + q2^2 + q3^2 with fused multiply-adds as XLA's
+    CPU reduction does (each emulated in float64, exact for these
+    products)."""
+    R = np.asarray(R, np.float32)
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    one, eps, half, four = (np.float32(v) for v in (1.0, 1e-12, 0.5, 4.0))
+    tr = m00 + m11 + m22
+    qw = np.sqrt(np.maximum(one + tr, eps)) * half
+    qx = np.sqrt(np.maximum(one + m00 - m11 - m22, eps)) * half
+    qy = np.sqrt(np.maximum(one - m00 + m11 - m22, eps)) * half
+    qz = np.sqrt(np.maximum(one - m00 - m11 + m22, eps)) * half
+    cand = np.stack([
+        np.stack([qw, (m21 - m12) / (four * qw), (m02 - m20) / (four * qw),
+                  (m10 - m01) / (four * qw)], -1),
+        np.stack([(m21 - m12) / (four * qx), qx, (m01 + m10) / (four * qx),
+                  (m02 + m20) / (four * qx)], -1),
+        np.stack([(m02 - m20) / (four * qy), (m01 + m10) / (four * qy), qy,
+                  (m12 + m21) / (four * qy)], -1),
+        np.stack([(m10 - m01) / (four * qz), (m02 + m20) / (four * qz),
+                  (m12 + m21) / (four * qz), qz], -1),
+    ], -2)
+    scores = np.stack([tr, m00 - m11 - m22, m11 - m00 - m22, m22 - m00 - m11], -1)
+    q = np.take_along_axis(cand, np.argmax(scores, -1)[..., None, None], -2)[..., 0, :]
+    q = q * np.where(q[..., :1] < 0, np.float32(-1), np.float32(1))
+    sq = q[..., 0] * q[..., 0]
+    for i in (1, 2, 3):  # fma(q_i, q_i, sq)
+        sq = (q[..., i].astype(np.float64) * q[..., i] + sq).astype(np.float32)
+    return q / np.sqrt(sq)[..., None]
 
 
 def mat_from_quat(q):

@@ -407,32 +407,104 @@ class SlamSystem:
         t.lost_frames = 0
 
     # ------------------------------------------------------------ trajectory
+    # The files equal the reference's byte for byte for the same poses: the
+    # quaternions come from lie/so3.py::quat_from_mat_np (float32, bit for
+    # bit the reference's), and the formats are the reference's.
     @staticmethod
     def _tum_line(ts, T_wc):
-        q = so3.quat_from_mat(torch.as_tensor(T_wc[:3, :3], dtype=torch.float32)).numpy()
+        q = so3.quat_from_mat_np(T_wc[:3, :3])
         t = T_wc[:3, 3]
         return (f"{ts:.6f} {t[0]:.7f} {t[1]:.7f} {t[2]:.7f} "
                 f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}")
 
-    def save_trajectory_tum(self, path: str):
-        """TUM format: ts tx ty tz qx qy qz qw (System::SaveTrajectoryTUM,
-        src/System.cc:609)."""
-        lines = [self._tum_line(ts, np.linalg.inv(T))
-                 for ts, _, T in self.tracker.absolute_trajectory()]
+    @staticmethod
+    def _write_lines(path: str, lines):
         with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
 
-    def save_keyframe_trajectory_tum(self, path: str):
+    def _keyframes_by_time(self):
         m = self.map
         kfs = m.keyframe_indices(all_maps=True)
+        return kfs[np.argsort(m.kf_ts[kfs])]
+
+    def save_trajectory_tum(self, path: str):
+        """TUM format: ts tx ty tz qx qy qz qw (System::SaveTrajectoryTUM,
+        src/System.cc:609)."""
+        self._write_lines(path, [self._tum_line(ts, np.linalg.inv(T))
+                                 for ts, _, T in self.tracker.absolute_trajectory()])
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        m = self.map
         lines = []
-        for k in kfs[np.argsort(m.kf_ts[kfs])]:
+        for k in self._keyframes_by_time():
             T_wc = np.eye(4)
             T_wc[:3, :3] = m.kf_R[k].T
             T_wc[:3, 3] = -m.kf_R[k].T @ m.kf_t[k]
             lines.append(self._tum_line(m.kf_ts[k], T_wc))
+        self._write_lines(path, lines)
+
+    def _T_bc(self):
+        """(4, 4) camera -> body of the inertial sensors, else None."""
+        imu = self.tracker.imu
+        if imu is None:
+            return None
+        T = np.eye(4)
+        T[:3, :3] = np.asarray(imu.cfg.R_bc, np.float64)
+        T[:3, 3] = np.asarray(imu.cfg.t_bc, np.float64)
+        return T
+
+    @staticmethod
+    def _euroc_line(ts, T_xw):
+        """ts_ns tx ty tz qw qx qy qz of the pose T_xw (world -> camera or body)."""
+        T_wx = np.linalg.inv(T_xw)
+        q = so3.quat_from_mat_np(T_wx[:3, :3])
+        t = T_wx[:3, 3]
+        return (f"{int(round(ts * 1e9))} {t[0]:.9f} {t[1]:.9f} {t[2]:.9f} "
+                f"{q[0]:.9f} {q[1]:.9f} {q[2]:.9f} {q[3]:.9f}")
+
+    def save_trajectory_euroc(self, path: str):
+        """EuRoC format: ts_ns tx ty tz qw qx qy qz. The visual sensors
+        write camera-to-world, the inertial ones body-to-world through T_bc
+        (System::SaveTrajectoryEuRoC writes Twb = (Tbc * Tcw)^-1 with an
+        IMU, src/System.cc:799-801)."""
+        T_bc = self._T_bc()
+        self._write_lines(path, [self._euroc_line(ts, T if T_bc is None else T_bc @ T)
+                                 for ts, _, T in self.tracker.absolute_trajectory()])
+
+    def save_keyframe_trajectory_euroc(self, path: str):
+        """The keyframes in EuRoC format; body frame for the inertial sensors
+        (System::SaveKeyFrameTrajectoryEuRoC, src/System.cc:830 region)."""
+        m = self.map
+        T_bc = self._T_bc()
+        lines = []
+        for k in self._keyframes_by_time():
+            T = np.eye(4)
+            T[:3, :3] = m.kf_R[k]
+            T[:3, 3] = m.kf_t[k]
+            lines.append(self._euroc_line(m.kf_ts[k], T if T_bc is None else T_bc @ T))
+        self._write_lines(path, lines)
+
+    def save_trajectory_kitti(self, path: str):
+        """KITTI format: the row-major 3x4 T_wc, 12 numbers a line
+        (System::SaveTrajectoryKITTI, src/System.cc:609-700 region)."""
+        self._write_lines(path, [" ".join(f"{x:.9e}" for x in np.linalg.inv(T)[:3].reshape(-1))
+                                 for _, _, T in self.tracker.absolute_trajectory()])
+
+    def save_debug_data(self, path: str) -> int:
+        """The IMU init's trace (System::SaveDebugData, src/System.cc:1305
+        region): one JSON line per staged-init / refinement event with its
+        kind, stage, solved scale, gravity rotation (9 numbers), solve wall
+        time, sequence time and whether it was applied. Returns the count."""
+        import json
+
+        imu = self.tracker.imu
+        events = imu.init_log if imu is not None else []
         with open(path, "w") as f:
-            f.write("\n".join(lines) + "\n")
+            for e in events:
+                row = dict(e)
+                row["R_wg"] = np.asarray(row["R_wg"]).reshape(-1).tolist()
+                f.write(json.dumps(row) + "\n")
+        return len(events)
 
     def shutdown(self):
         """System::Shutdown (src/System.cc:555): drain and stop the mapper."""

@@ -1,12 +1,22 @@
 """Rendered synthetic frames: a textured plane under a known trajectory.
 
 Numpy port of camera_rays, render_textured_scene,
-render_textured_scene_with_depth and orbit_state from
-orb_slam3_modified_tpu/utils/synthetic_dataset.py, and of the cam1 (right
-image of a rectified pair) and depth renderings of its write_euroc_sequence,
-in memory: the EuRoC folder reader comes with ROADMAP item 13.
+render_textured_scene_with_depth, orbit_state and write_euroc_sequence
+(:137-290) from orb_slam3_modified_tpu/utils/synthetic_dataset.py, with
+in-memory renderings of write_euroc_sequence's cam0, cam1 (the right image
+of a rectified pair), depth and IMU streams beside it.
+
+write_euroc_sequence writes its PNGs through io/png.py. Its CSVs, IMU
+samples and ground truth equal the reference's; its images may differ by
+rounding, since make_texture upsamples with torch's bicubic and the
+reference with cv2.resize(INTER_CUBIC): the two textures differ by at most
+7.6e-5 grey levels (seeds 0-2), and a 30-frame stereo sequence's images
+differ in 8.0e-6 (512x384) and 8.3e-6 (752x480) of their pixels, by 1 grey
+level each; tests/test_torch_io.py holds at most 1e-4 of them, by at most 1.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -298,3 +308,93 @@ def imu_between(ts, gyro, acc, t0, t1):
     tss = ts[sel]
     dts = np.maximum(np.diff(np.concatenate([[t0], tss])), 0.0)
     return (acc[sel].astype(np.float32), gyro[sel].astype(np.float32), dts.astype(np.float32))
+
+
+def write_euroc_images(cam_dir: str, t_ns, images) -> None:
+    """One EuRoC camera stream: cam_dir/data/<t_ns>.png (io/png.py) for each
+    image (uint8 grey or uint16 depth) and cam_dir/data.csv."""
+    from ..io.png import write_png
+
+    os.makedirs(os.path.join(cam_dir, "data"), exist_ok=True)
+    lines = ["#timestamp [ns],filename"]
+    for t, img in zip(t_ns, images):
+        write_png(os.path.join(cam_dir, "data", f"{t}.png"), img)
+        lines.append(f"{t},{t}.png")
+    with open(os.path.join(cam_dir, "data.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_euroc_sequence(
+    out_dir: str,
+    cam,
+    n_frames: int = 30,
+    fps: float = 20.0,
+    seed: int = 0,
+    radius: float = 3.0,
+    sweep: float = np.pi / 4,
+    height: float = 0.4,
+    stereo_baseline: float = 0.0,
+    with_imu: bool = False,
+    imu_rate: float = 200.0,
+    closed_loop: bool = False,
+    T_bc: np.ndarray = None,  # (4,4) camera->body extrinsics; None = identity
+    gyro_noise_std: float = 0.0,  # rad/s per-sample white noise
+    acc_noise_std: float = 0.0,  # m/s^2 per-sample white noise
+    gyro_bias=(0.0, 0.0, 0.0),  # constant true bias (rad/s)
+    acc_bias=(0.0, 0.0, 0.0),  # constant true bias (m/s^2)
+    with_depth: bool = False,  # write mav0/depth0/data/<ns>.png (uint16 mm)
+    texture: np.ndarray = None,  # (TH, TW) float32 override scene texture
+):
+    """Render an orbit over a textured plane into EuRoC layout
+    (mav0/cam0/data.csv + data/*.png; mav0/cam1 with stereo_baseline > 0,
+    the right camera displaced by +baseline along the left camera's x axis;
+    mav0/depth0 with uint16 millimetre depth maps; mav0/imu0/data.csv, gyro
+    then acc columns, from imu_stream): the surface the example mains read
+    (mono_inertial_euroc.cc LoadImages / LoadIMU). closed_loop=True sweeps
+    a full revolution of the ring. Returns the ground-truth T_cw (4, 4) of
+    cam0's frames."""
+    ring = closed_loop
+    if closed_loop:
+        sweep = 2 * np.pi
+    if texture is None:
+        texture = make_texture(seed, 96, 1024)
+    period = n_frames / fps  # full sweep duration; frame i at i/fps
+    rays = camera_rays(cam)
+    T_rl = np.eye(4)
+    T_rl[0, 3] = -stereo_baseline  # p_right = p_left - b*ex
+    t_ns, gts, left, right, depths = [], [], [], [], []
+    for i in range(n_frames):
+        R_cw, p, _, _ = orbit_state(i / fps, period, radius, sweep, height, ring)
+        T = np.eye(4)
+        T[:3, :3] = R_cw
+        T[:3, 3] = -R_cw @ p
+        t_ns.append(int(round(i / fps * 1e9)))
+        gts.append(T)
+        if with_depth:
+            img, depth, _ = render_textured_scene_with_depth(T, cam, texture, plane_z=2.0,
+                                                             plane_half=10.0, rays_c=rays)
+            depths.append(np.clip(depth * 1000.0, 0, 65535).astype(np.uint16))
+        else:
+            img = render_textured_scene(T, cam, texture, plane_z=2.0, plane_half=10.0,
+                                        rays_c=rays)
+        left.append(img.astype(np.uint8))  # as the reference casts: no clip
+        if stereo_baseline > 0:
+            right.append(render_textured_scene(T_rl @ T, cam, texture, plane_z=2.0,
+                                               plane_half=10.0, rays_c=rays).astype(np.uint8))
+    mav = os.path.join(out_dir, "mav0")
+    write_euroc_images(os.path.join(mav, "cam0"), t_ns, left)
+    if stereo_baseline > 0:
+        write_euroc_images(os.path.join(mav, "cam1"), t_ns, right)
+    if with_depth:
+        write_euroc_images(os.path.join(mav, "depth0"), t_ns, depths)
+    if with_imu:
+        ts, gyro, acc = imu_stream(n_frames, fps, seed, radius, sweep, height, imu_rate, ring,
+                                   T_bc, gyro_noise_std, acc_noise_std, gyro_bias, acc_bias)
+        rows = ["#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z"]
+        for tau, w, a in zip(ts, gyro, acc):
+            rows.append(f"{int(round(tau * 1e9))},{w[0]:.9f},{w[1]:.9f},{w[2]:.9f},"
+                        f"{a[0]:.9f},{a[1]:.9f},{a[2]:.9f}")
+        os.makedirs(os.path.join(mav, "imu0"), exist_ok=True)
+        with open(os.path.join(mav, "imu0", "data.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return gts

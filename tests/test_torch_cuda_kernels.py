@@ -666,3 +666,26 @@ def test_remap_bilinear_on_the_card_matches_the_cpu():
     for a, b in zip(cpu, card):
         assert b.device.type == "cuda" and b.shape == (480, 752)
         torch.testing.assert_close(b.cpu(), a, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_depth_net_on_the_card_matches_the_cpu():
+    """models/depth.py's net (the shipped asset) through make_depth_fn /
+    make_seg_fn on one 752x480 frame, card against CPU: F.conv2d in float32
+    with TF32 off and the antialiased resizes, depth within 1e-4 relative,
+    class maps equal wherever the CPU's two logits are more than 1e-3 apart."""
+    from orb_slam3_modified_tpu_torch.models import depth
+
+    dev = _card()
+    net_gpu, meta = depth.default_depth_model(device=dev)
+    net_cpu, _ = depth.default_depth_model(device="cpu")
+    hw = tuple(int(x) for x in meta["train_res"].split("x"))
+    rng = np.random.default_rng(0)
+    small = torch.from_numpy(rng.uniform(0, 255, (1, 1, 30, 47)).astype(np.float32))
+    img = torch.nn.functional.interpolate(small, size=(480, 752), mode="bicubic")[0, 0].numpy()
+    d_gpu, d_cpu = (depth.make_depth_fn(n, hw)(img) for n in (net_gpu, net_cpu))
+    np.testing.assert_allclose(d_gpu, d_cpu, rtol=1e-4)
+    logits = depth._run_at_train_res(net_cpu, img, hw)[1].numpy()
+    clear = np.abs(logits[1] - logits[0]) > 1e-3
+    s_gpu, s_cpu = (depth.make_seg_fn(n, hw)(img) for n in (net_gpu, net_cpu))
+    assert np.array_equal(s_gpu[clear], s_cpu[clear])

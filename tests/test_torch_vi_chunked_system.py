@@ -1,15 +1,22 @@
-"""The chunked visual-inertial frontend as a whole on the port:
-SlamSystem(sensor=IMU_*).make_chunked_frontend(chunk=8, lag=1,
-async_mapping=False) in memory, on the scenes and with the gates of
-tests/test_e2e_cli.py's chunked inertial cases (which run the reference's
-CLI: --chunked --chunk-size 8 --sync-mapping --no-loop, 512 features over 4
-levels, the 512x384 camera, the default IMU noise).
+"""The chunked visual-inertial frontend as a whole on the port, through the
+port's runner: run.main([... "--chunked", "--chunk-size", "8",
+"--sync-mapping", "--no-loop", "--device", "cpu"]) on the scenes and with
+the gates of tests/test_e2e_cli.py's chunked inertial cases (which run the
+reference's runner with the same flags: 512 features over 4 levels, the
+512x384 camera, the default IMU noise), each sequence written by the
+reference's write_euroc_sequence and read back by the port's EurocDataset,
+the config a settings file of the reference's format.
 
-- test_mono_inertial_chunked_sync: loop_sequence (write_euroc_sequence: 192
-  frames of a closed ring of radius 3 m, the ideal 200 Hz IMU, the frames
-  and IMU read back through the reference's EurocDataset, as the CLI reads
-  them): stage >= 2, >= 80 tracked frames in the second half, their
-  scale-aligned ATE < 0.30 m and |s - 1| < 0.15.
+- test_mono_inertial_chunked_sync: loop_sequence (192 frames of a closed
+  ring of radius 3 m, the ideal 200 Hz IMU): stage >= 2, >= 80 tracked
+  frames in the second half, their scale-aligned ATE < 0.30 m and
+  |s - 1| < 0.15. The same run writes every output the runner has:
+  --kf-out (the keyframe TUM file), --atlas-out (loads back equal to the
+  map), --debug-out (one line per init event), --viz-out --viz-every 16
+  (overlays named by retired frame ids) and --semantic-out (a PLY through
+  the depth net); then --atlas-in resumes from that atlas for 8 frames,
+  async mapper and loop closing on, with every holder of the map holding
+  the loaded one.
 - test_rgbd_inertial_chunked: the depth ring, its first 120 frames: the
   IMU initialized, >= 40 tracked frames from frame 50 on, ATE < 0.5 m,
   |s - 1| < 0.25.
@@ -21,6 +28,7 @@ levels, the 512x384 camera, the default IMU noise).
   a tail ATE no worse.
 """
 import fcntl
+import glob
 import os
 
 import numpy as np
@@ -28,7 +36,6 @@ import pytest
 import torch
 
 from orb_slam3_modified_tpu.cameras import Camera as JCamera
-from orb_slam3_modified_tpu_torch import convert
 from orb_slam3_modified_tpu_torch.eval.ate import ate_rmse
 
 torch.set_num_threads(2)
@@ -40,33 +47,18 @@ REF_STEREO_CHUNKED_SYNC = {"imu_stage": 2, "tail": 95, "tail_ate_m": 1.711119951
                            "tail_scale": 0.17154352819891644}
 
 
-def _imu_tuple(samples, prev_ts):
-    """run.py's imu_tuple: (acc, gyro, dts) of a frame's EuRoC samples."""
-    if not samples:
-        return None
-    acc = np.stack([s.acc for s in samples]).astype(np.float32)
-    gyro = np.stack([s.gyro for s in samples]).astype(np.float32)
-    tss = np.array([s.ts for s in samples])
-    t0 = prev_ts if prev_ts is not None else tss[0]
-    return acc, gyro, np.maximum(np.diff(np.concatenate([[t0], tss])), 0.0).astype(np.float32)
-
-
 def _sequence(root, write=True, **kw):
-    """(frames read back through the reference's EurocDataset, the true
-    camera centres) of write_euroc_sequence's ring; write=False reads a
-    sequence written before."""
-    from orb_slam3_modified_tpu.io.datasets import EurocDataset
+    """(root, the true camera centres) of write_euroc_sequence's ring;
+    write=False takes a sequence written before."""
     from orb_slam3_modified_tpu.utils.synthetic_dataset import orbit_state, write_euroc_sequence
 
     if write:
         write_euroc_sequence(root, JCAM, n_frames=N_FRAMES, fps=FPS, radius=3.0,
                              closed_loop=True, with_imu=True, **kw)
-    frames = list(EurocDataset(root, stereo=kw.get("stereo_baseline", 0) > 0, with_imu=True,
-                               with_depth=kw.get("with_depth", False)))
-    # the centres write_euroc_sequence returns its T_cw of (closed_loop: the ring)
+    # the centres of the T_cw write_euroc_sequence returns (closed_loop: the ring)
     centres = [orbit_state(i / FPS, N_FRAMES / FPS, 3.0, 2 * np.pi, 0.4, True)[1]
                for i in range(N_FRAMES)]
-    return frames, np.array(centres)
+    return root, np.array(centres)
 
 
 @pytest.fixture(scope="module")
@@ -82,37 +74,39 @@ def loop_sequence(tmp_path_factory):
         fcntl.flock(lock, fcntl.LOCK_EX)
         done = root / "written"
         if not done.exists():
-            frames = _sequence(str(root), stereo_baseline=BASELINE_M)
+            seq = _sequence(str(root), stereo_baseline=BASELINE_M)
             done.touch()
-            return frames
-    return _sequence(str(root), stereo_baseline=BASELINE_M, write=False)
+            return seq
+    return _sequence(str(root), write=False)
 
 
-def _run(sensor, frames, n_max=None):
-    """The port's SlamSystem through the chunked frontend as run.py drives
-    the reference's: (slam, retired, {frame id: camera centre})."""
-    from orb_slam3_modified_tpu_torch.features.extractor import ExtractorConfig
-    from orb_slam3_modified_tpu_torch.system import slam_system as ss
+def _config(path, bf=0.0):
+    """tests/test_e2e_cli.py's _write_config: the camera, 512 features over
+    4 levels, Camera.bf for the depth sensors, no IMU block (the default
+    noise)."""
+    lines = ["%YAML:1.0", "---"] + [f"Camera.{k}: {getattr(JCAM, k)}" for k in
+                                    ("fx", "fy", "cx", "cy", "width", "height")]
+    lines += [f"Camera.fps: {FPS}", "ORBextractor.nFeatures: 512", "ORBextractor.nLevels: 4"]
+    if bf:
+        lines.append(f"Camera.bf: {bf}")  # as test_e2e_cli.py writes it
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
 
-    stereo, rgbd = sensor == ss.IMU_STEREO, sensor == ss.IMU_RGBD
-    slam = ss.SlamSystem(ss.SystemConfig(
-        cam=convert.camera(JCAM, device="cpu"), sensor=sensor, feat_cap=512,
-        extractor=ExtractorConfig(n_features=512, n_levels=4), use_loop_closing=False,
-        bf=BASELINE_M * JCAM.fx if stereo or rgbd else 0.0, device="cpu"))
-    fe = slam.make_chunked_frontend(chunk=8, lag=1, async_mapping=False, stereo=stereo, rgbd=rgbd)
-    retired, prev = [], None
-    for fr in frames[:n_max]:
-        samples = _imu_tuple(fr.imu, prev)
-        if fr.imu:
-            prev = fr.imu[-1].ts
-        kw = ({"img_right": np.asarray(fr.image_right, np.uint8)} if stereo
-              else {"depth_img": np.asarray(fr.depth, np.float32)} if rgbd else {})
-        retired += fe.track_image(np.asarray(fr.image, np.uint8), fr.ts, imu_samples=samples,
-                                  **kw)
-    retired += fe.flush()
-    slam.shutdown()
-    centres = {f: np.linalg.inv(T)[:3, 3] for _, f, T in slam.tracker.absolute_trajectory()}
-    return slam, retired, centres
+
+def _run(sensor, root, tmp_path, n_max=None, extra=()):
+    """The port's runner as tests/test_e2e_cli.py runs the reference's:
+    (RunResult, {frame id: camera centre})."""
+    from orb_slam3_modified_tpu_torch import run
+
+    bf = BASELINE_M * JCAM.fx if sensor != "mono-imu" else 0.0
+    argv = ["--dataset", "euroc", "--path", root, "--config",
+            _config(str(tmp_path / "cfg.yaml"), bf), "--sensor", sensor, "--device", "cpu",
+            "--out", str(tmp_path / "traj.txt"), "--no-loop", "--chunked", "--chunk-size", "8",
+            "--sync-mapping", *(["--max-frames", str(n_max)] if n_max else []), *extra]
+    res = run.main(argv)
+    centres = {f: np.linalg.inv(T)[:3, 3] for _, f, T in res.slam.tracker.absolute_trajectory()}
+    return res, centres
 
 
 def _tail_fit(centres, gt, first):
@@ -121,12 +115,18 @@ def _tail_fit(centres, gt, first):
     return len(fids), float(rmse), float(s)
 
 
-def test_mono_inertial_chunked_sync(loop_sequence):
-    from orb_slam3_modified_tpu_torch.system.slam_system import IMU_MONOCULAR
+def test_mono_inertial_chunked_sync(loop_sequence, tmp_path):
+    from orb_slam3_modified_tpu_torch import run
+    from orb_slam3_modified_tpu_torch.slam_map.serialization import load_atlas
 
-    frames, gt = loop_sequence
-    slam, retired, centres = _run(IMU_MONOCULAR, frames)
-    assert [r[0] for r in retired] == list(range(N_FRAMES))
+    root, gt = loop_sequence
+    out = {k: str(tmp_path / k) for k in ("kf.txt", "atlas", "debug.jsonl", "viz", "cloud.ply")}
+    res, centres = _run("mono-imu", root, tmp_path, extra=[
+        "--kf-out", out["kf.txt"], "--atlas-out", out["atlas"], "--debug-out",
+        out["debug.jsonl"], "--viz-out", out["viz"], "--viz-every", "16", "--semantic-out",
+        out["cloud.ply"]])
+    slam = res.slam
+    assert res.retired == list(range(N_FRAMES)) and res.n_frames == N_FRAMES
     imu = slam.tracker.imu
     assert imu.initialized, "IMU never initialized"
     assert imu.stage >= 2, f"staged init stalled at {imu.stage}"
@@ -135,14 +135,45 @@ def test_mono_inertial_chunked_sync(loop_sequence):
     assert rmse < 0.30, f"sync-chunked mono-inertial ATE {rmse:.3f} m"
     assert abs(s - 1.0) < 0.15, f"metric scale off: {s:.3f}"
 
+    # every output of the run
+    traj = np.loadtxt(str(tmp_path / "traj.txt"), ndmin=2)
+    assert len(traj) == len(centres)
+    assert len(np.loadtxt(out["kf.txt"], ndmin=2)) == slam.map.n_keyframes(all_maps=True)
+    atlas = load_atlas(out["atlas"])
+    for name, v in vars(slam.map).items():
+        if isinstance(v, np.ndarray):
+            assert np.array_equal(getattr(atlas, name), v), name
+    events = open(out["debug.jsonl"]).read().splitlines()
+    assert len(events) == len(imu.init_log) >= 2
+    shots = sorted(glob.glob(os.path.join(out["viz"], "frame_*.png")))
+    ids = [int(os.path.basename(p)[6:12]) for p in shots]
+    assert len(ids) >= N_FRAMES // 16 - 2 and set(ids) <= set(res.retired)
+    with open(out["cloud.ply"]) as f:
+        head = [next(f) for _ in range(3)]
+    assert head[0] == "ply\n" and int(head[2].split()[-1]) > 200
 
-def test_stereo_inertial_chunked_sync(loop_sequence):
-    from orb_slam3_modified_tpu_torch.system.slam_system import IMU_STEREO
+    # resume from the atlas: 8 frames, async mapper and loop closing on
+    resumed = run.main(["--dataset", "euroc", "--path", root, "--config",
+                        str(tmp_path / "cfg.yaml"), "--sensor", "mono-imu", "--device", "cpu",
+                        "--out", str(tmp_path / "resumed.txt"), "--chunked", "--chunk-size",
+                        "8", "--max-frames", "8", "--atlas-in", out["atlas"]])
+    r = resumed.slam
+    assert resumed.retired == list(range(8))
+    holders = [r.tracker.map, r.mapper.map, r.closer.map, r.async_mapper.mapper.map,
+               resumed.frontend.tracker.map]
+    assert all(h is r.map for h in holders)
+    assert r.closer._on_kf_removed in r.map.kf_removed_callbacks
+    assert r.map.n_maps == atlas.n_maps + 1 and r.map.active_map == atlas.n_maps
+    old = atlas.keyframe_indices(all_maps=True)
+    assert np.array_equal(r.map.kf_frame_id[old], atlas.kf_frame_id[old])
+    assert {int(k) for k in old} <= set(r.closer.kfdb.kf_words)  # Map::PostLoad
 
-    frames, gt = loop_sequence
-    slam, retired, centres = _run(IMU_STEREO, frames)
-    ref = REF_STEREO_CHUNKED_SYNC
-    assert [r[0] for r in retired] == list(range(N_FRAMES))
+
+def test_stereo_inertial_chunked_sync(loop_sequence, tmp_path):
+    root, gt = loop_sequence
+    res, centres = _run("stereo-imu", root, tmp_path)
+    slam, ref = res.slam, REF_STEREO_CHUNKED_SYNC
+    assert res.retired == list(range(N_FRAMES))
     imu = slam.tracker.imu
     assert imu.initialized and imu.stage >= ref["imu_stage"], imu.stage
     assert all(e["scale"] == 1.0 for e in imu.init_log if e["applied"])  # metric: no rescale
@@ -152,12 +183,10 @@ def test_stereo_inertial_chunked_sync(loop_sequence):
 
 
 def test_rgbd_inertial_chunked(tmp_path):
-    from orb_slam3_modified_tpu_torch.system.slam_system import IMU_RGBD
-
-    frames, gt = _sequence(str(tmp_path), with_depth=True)
-    slam, retired, centres = _run(IMU_RGBD, frames, n_max=120)
-    assert [r[0] for r in retired] == list(range(120))
-    imu = slam.tracker.imu
+    root, gt = _sequence(str(tmp_path / "seq"), with_depth=True)
+    res, centres = _run("rgbd-imu", root, tmp_path, n_max=120)
+    assert res.retired == list(range(120))
+    imu = res.slam.tracker.imu
     assert imu.initialized, "IMU never initialized"
     assert not imu.cfg.mono, "RGB-D-inertial must not re-solve scale"
     n_tail, rmse, s = _tail_fit(centres, gt, 50)
